@@ -25,7 +25,8 @@ import tpucomp_torch.chunk as chunk
 import tpucomp_torch.constants as constants
 from tpucomp_torch import batched, logging as tlog
 from tpucomp_torch.interop import cpu as interop
-from tpucomp_torch.ops.cuda import _build, lz4_decode2, lz4_encode2
+from tpucomp_torch.ops.cuda import (_build, lz4_decode2, lz4_encode2, snappy_decode,
+                                    snappy_encode2)
 from tpucomp_torch.utils import synth
 
 REPO = Path(__file__).resolve().parents[1]
@@ -167,6 +168,12 @@ def test_kernel_paths_refuse_cpu_tensors():
         lz4_decode2.decompress_batch(cb.data, cb.sizes, 16)
     with pytest.raises(ValueError, match="CUDA"):
         lz4_encode2.compress_batch(cb.data, cb.sizes, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        batched.compress("snappy", cb, backend="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        snappy_decode.decompress_batch(cb.data, cb.sizes, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        snappy_encode2.compress_batch(cb.data, cb.sizes, 64)
 
 
 def test_unported_paths_raise_not_implemented():
@@ -175,6 +182,8 @@ def test_unported_paths_raise_not_implemented():
         batched.compress("lz4", cb, backend="xla")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         batched.get_decompress_size("lz4", cb)
+    with pytest.raises(NotImplementedError, match="formats/snappy.py"):
+        batched.decompress("snappy", cb, 16, backend="xla")
     with pytest.raises(ValueError, match="unknown backend"):
         batched.decompress("lz4", cb, 16, backend="pallas")
     with pytest.raises(ValueError, match="unknown format"):
@@ -182,7 +191,7 @@ def test_unported_paths_raise_not_implemented():
 
 
 def test_api_parity_shims():
-    assert batched.formats() == ["lz4"]
+    assert batched.formats() == ["lz4", "snappy"]
     assert batched.compress_get_temp_size("lz4", 10, 65536) == 0
     assert batched.decompress_get_temp_size("lz4", 10, 65536) == 0
     assert batched.compress_get_temp_size_ex("lz4", 10, 65536, 1 << 20) == 0
@@ -233,7 +242,9 @@ def test_no_jax_or_reference_import_in_source(path):
 def test_import_leaves_jax_and_reference_out():
     code = ("import sys, tpucomp_torch, tpucomp_torch.batched, tpucomp_torch.formats, "
             "tpucomp_torch.ops.cuda.lz4_decode2, tpucomp_torch.ops.cuda.lz4_encode2, "
-            "tpucomp_torch.utils.synth, tpucomp_torch.interop.cpu\n"
+            "tpucomp_torch.ops.cuda.snappy_decode, tpucomp_torch.ops.cuda.snappy_encode2, "
+            "tpucomp_torch.formats.snappy, tpucomp_torch.formats.crc32, "
+            "tpucomp_torch.manager, tpucomp_torch.utils.synth, tpucomp_torch.interop.cpu\n"
             "tpucomp_torch.batched.formats()\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tpucomp')]\n"
             "assert not bad, bad\n")

@@ -9,8 +9,10 @@ runs a Pallas TPU kernel, this package runs a CUDA C++ kernel for ``sm_90a``
 needs neither a GPU nor ``nvcc``; entry points place their data on the card
 unless the caller names another device.
 
-Ported so far: batched LZ4 compress and decompress
-(:mod:`tpucomp_torch.batched`).
+Ported so far: batched LZ4 and Snappy compress and decompress
+(:mod:`tpucomp_torch.batched`, with Snappy's ``get_decompress_size``), the
+batched CRC32 (:mod:`tpucomp_torch.formats.crc32`), and the Manager frame
+path with its five checksum modes (:mod:`tpucomp_torch.manager`).
 """
 from tpucomp_torch.constants import (
     DEFAULT_CHUNK_SIZE,

@@ -33,8 +33,8 @@ from tpucomp_torch import logging as tlog
 from tpucomp_torch.chunk import ChunkBatch
 from tpucomp_torch.constants import MAX_ALLOWED_CHUNK_SIZE, REQUIRED_ALIGNMENT, Status
 
-_LOG_DEPTH_TODO = ("the log-depth program of tpucomp/formats/lz4.py + "
-                   "ops/parallel_lz.py is not ported yet (ROADMAP.md, queue A, item 1)")
+_LOG_DEPTH_TODO = ("the log-depth program of tpucomp/formats/{fmt}.py + "
+                   "ops/parallel_lz.py is not ported yet (ROADMAP.md, queue A)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,8 +161,23 @@ def _impl(fmt: str, backend: str, on_cuda: bool, kernels: dict, plain: Callable,
     if backend == "plain":
         return plain
     if backend == "xla":
-        raise NotImplementedError(f"backend 'xla': {_LOG_DEPTH_TODO}")
+        raise NotImplementedError(f"backend 'xla': {_LOG_DEPTH_TODO.format(fmt=fmt)}")
     raise ValueError(f"unknown backend {backend!r} (auto/kernel/plain/xla)")
+
+
+def _encode_fn(fmt: str, spec: CodecSpec, backend: str, device: torch.device) -> Callable:
+    """The encode implementation for ``backend`` on ``device`` (the
+    reference's ``_encode_fn``; the Manager calls it directly)."""
+    from tpucomp_torch.ops import cuda as kc
+    return _impl(fmt, backend, device.type == "cuda", kc.KERNEL_ENCODERS,
+                 spec.compress_batch, "encoder")
+
+
+def _decode_fn(fmt: str, spec: CodecSpec, backend: str, device: torch.device) -> Callable:
+    """The decode implementation for ``backend`` on ``device``."""
+    from tpucomp_torch.ops import cuda as kc
+    return _impl(fmt, backend, device.type == "cuda", kc.KERNEL_DECODERS,
+                 spec.decompress_batch, "decoder")
 
 
 def compress(fmt: str, batch: ChunkBatch, opts: Any = None,
@@ -176,7 +191,6 @@ def compress(fmt: str, batch: ChunkBatch, opts: Any = None,
     inputs surface as per-chunk error statuses (size 0, zeroed row), misaligned
     batch/output strides as ``ERROR_ALIGNMENT`` for the whole call.
     """
-    from tpucomp_torch.ops import cuda as kc
     spec = _get(fmt)
     opts = opts if opts is not None else spec.default_opts
     if out_cap is None:
@@ -187,8 +201,7 @@ def compress(fmt: str, batch: ChunkBatch, opts: Any = None,
     tlog.api_call(f"batched.{fmt}.compress", num_chunks=batch.num_chunks,
                   max_chunk_bytes=batch.max_chunk_bytes, out_cap=out_cap,
                   backend=backend)
-    fn = _impl(fmt, backend, batch.device.type == "cuda", kc.KERNEL_ENCODERS,
-               spec.compress_batch, "encoder")
+    fn = _encode_fn(fmt, spec, backend, batch.device)
     out, sizes, statuses = fn(batch.data, batch.sizes, opts, out_cap)
     viol = _input_violations(fmt, spec, batch.sizes, opts)
     bad = viol != 0
@@ -205,7 +218,6 @@ def decompress(fmt: str, comp: ChunkBatch, max_uncompressed_chunk_bytes: int,
     Corrupt chunks yield status ``ERROR_CANNOT_DECOMPRESS`` and size 0 — never an
     out-of-bounds access (reference contract ``CHANGELOG.md:160-164``).
     """
-    from tpucomp_torch.ops import cuda as kc
     spec = _get(fmt)
     align = REQUIRED_ALIGNMENT.get(fmt, 1)
     if comp.max_chunk_bytes % align:
@@ -213,17 +225,19 @@ def decompress(fmt: str, comp: ChunkBatch, max_uncompressed_chunk_bytes: int,
                                   comp.device)
     tlog.api_call(f"batched.{fmt}.decompress", num_chunks=comp.num_chunks,
                   out_cap=max_uncompressed_chunk_bytes, backend=backend)
-    fn = _impl(fmt, backend, comp.device.type == "cuda", kc.KERNEL_DECODERS,
-               spec.decompress_batch, "decoder")
+    fn = _decode_fn(fmt, spec, backend, comp.device)
     out, sizes, statuses = fn(comp.data, comp.sizes, max_uncompressed_chunk_bytes)
     return ChunkBatch(data=out, sizes=sizes), statuses
 
 
 def get_decompress_size(fmt: str, comp: ChunkBatch) -> torch.Tensor:
-    """Analog of ``nvcompBatched<Fmt>GetDecompressSizeAsync``; not ported yet."""
+    """Analog of ``nvcompBatched<Fmt>GetDecompressSizeAsync``: per-chunk
+    decompressed byte counts read from the compressed streams, on the batch's
+    device (Snappy's varint preamble; LZ4's is not ported yet)."""
     spec = _get(fmt)
     if spec.get_decompress_size is None:
-        raise NotImplementedError(f"get_decompress_size({fmt!r}): {_LOG_DEPTH_TODO}")
+        raise NotImplementedError(
+            f"get_decompress_size({fmt!r}): {_LOG_DEPTH_TODO.format(fmt=fmt)}")
     tlog.api_call(f"batched.{fmt}.get_decompress_size", num_chunks=comp.num_chunks)
     return spec.get_decompress_size(comp.data, comp.sizes)
 

@@ -27,6 +27,13 @@ def round_up(x: int, m: int) -> int:
     return ceil_div(x, m) * m
 
 
+def wrap_i32(x):
+    """Each value's low 32 bits read as int32, in ``x``'s type (a Python int
+    or an integer tensor): the wrap of the reference's int32 arithmetic,
+    computed in 64 bits."""
+    return ((x + 2**31) & 0xFFFFFFFF) - 2**31
+
+
 def _resolve_device(device: str | torch.device | None) -> torch.device:
     """``None`` -> the card; raise if a CUDA device is asked for and absent."""
     dev = torch.device("cuda" if device is None else device)

@@ -1,11 +1,11 @@
-"""CPU LZ4 oracle via ctypes bindings to liblz4.
+"""CPU LZ4 and Snappy oracles via ctypes bindings to liblz4 and libsnappy.
 
-Port of the liblz4 part of :mod:`tpucomp.interop.cpu` (``:21-84``): the
-correctness oracle of the LZ4 path.  CPU-compress -> GPU-decompress and
-GPU-compress -> CPU-decompress must both round-trip bit-exactly, which proves
-the kernels implement the public format rather than merely being self-inverse.
-The binding is optional: it raises ``InteropUnavailable`` if the system
-library is missing.
+Port of the liblz4 and libsnappy parts of :mod:`tpucomp.interop.cpu`
+(``:21-128``): the correctness oracles of the LZ4 and Snappy paths.
+CPU-compress -> GPU-decompress and GPU-compress -> CPU-decompress must both
+round-trip bit-exactly, which proves the kernels implement the public format
+rather than merely being self-inverse.  The bindings are optional: each raises
+``InteropUnavailable`` if its system library is missing.
 """
 from __future__ import annotations
 
@@ -78,10 +78,55 @@ def lz4_decompress(data: bytes, uncompressed_size: int) -> bytes:
     return out.raw[:n]
 
 
+@functools.lru_cache(maxsize=1)
+def _snappy() -> ctypes.CDLL:
+    lib = _load(["libsnappy.so.1", "libsnappy.so"])
+    lib.snappy_compress.restype = ctypes.c_int
+    lib.snappy_compress.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                                    ctypes.c_char_p, ctypes.POINTER(ctypes.c_size_t)]
+    lib.snappy_uncompress.restype = ctypes.c_int
+    lib.snappy_uncompress.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                                      ctypes.c_char_p, ctypes.POINTER(ctypes.c_size_t)]
+    lib.snappy_max_compressed_length.restype = ctypes.c_size_t
+    lib.snappy_max_compressed_length.argtypes = [ctypes.c_size_t]
+    lib.snappy_uncompressed_length.restype = ctypes.c_int
+    lib.snappy_uncompressed_length.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                                               ctypes.POINTER(ctypes.c_size_t)]
+    return lib
+
+
+def snappy_compress(data: bytes) -> bytes:
+    """Raw Snappy block compress via libsnappy's C bindings."""
+    lib = _snappy()
+    out_len = ctypes.c_size_t(lib.snappy_max_compressed_length(len(data)))
+    out = ctypes.create_string_buffer(max(out_len.value, 1))
+    rc = lib.snappy_compress(data, len(data), out, ctypes.byref(out_len))
+    if rc != 0:
+        raise RuntimeError(f"snappy_compress failed (rc={rc})")
+    return out.raw[:out_len.value]
+
+
+def snappy_decompress(data: bytes) -> bytes:
+    """Raw Snappy block decompress via libsnappy (reads the varint preamble)."""
+    lib = _snappy()
+    out_len = ctypes.c_size_t(0)
+    rc = lib.snappy_uncompressed_length(data, len(data), ctypes.byref(out_len))
+    if rc != 0:
+        raise RuntimeError(f"snappy_uncompressed_length failed (rc={rc})")
+    out = ctypes.create_string_buffer(max(out_len.value, 1))
+    rc = lib.snappy_uncompress(data, len(data), out, ctypes.byref(out_len))
+    if rc != 0:
+        raise RuntimeError(f"snappy_uncompress failed (rc={rc})")
+    return out.raw[:out_len.value]
+
+
 def available() -> dict[str, bool]:
     """Report which interop oracles can load on this system."""
-    try:
-        _lz4()
-        return {"lz4": True}
-    except InteropUnavailable:
-        return {"lz4": False}
+    out = {}
+    for name, loader in (("lz4", _lz4), ("snappy", _snappy)):
+        try:
+            loader()
+            out[name] = True
+        except InteropUnavailable:
+            out[name] = False
+    return out

@@ -8,7 +8,10 @@ the same module, sits its plain version with the same signature.
 - :mod:`.lz4_decode2` — LZ4 block decode (``csrc/lz4_decode.cu``).
 - :mod:`.lz4_encode2` — LZ4 emitter over :func:`tpucomp_torch.ops.match
   .candidates2` (``csrc/lz4_encode.cu``).
-- ``csrc/bytecopy.cuh`` — the warp byte-copy helpers both share.
+- :mod:`.snappy_decode` — Snappy block decode (``csrc/snappy_decode.cu``).
+- :mod:`.snappy_encode2` — Snappy emitter over :func:`tpucomp_torch.ops.match
+  .candidates2` (``csrc/snappy_encode.cu``).
+- ``csrc/bytecopy.cuh`` — the warp byte-copy helpers all four share.
 
 ``KERNEL_DECODERS`` / ``KERNEL_ENCODERS`` map a format name to the kernel
 path, a drop-in for the registry's ``decompress_batch`` / ``compress_batch``
@@ -29,10 +32,22 @@ def _lz4_compress_batch(data, sizes, opts, out_cap):
     return lz4_encode2.compress_batch(data, sizes, out_cap)
 
 
+def _snappy_decompress_batch(comp, comp_sizes, out_cap):
+    from tpucomp_torch.ops.cuda import snappy_decode
+    return snappy_decode.decompress_batch(comp, comp_sizes, out_cap)
+
+
+def _snappy_compress_batch(data, sizes, opts, out_cap):
+    from tpucomp_torch.ops.cuda import snappy_encode2   # SnappyOpts is empty
+    return snappy_encode2.compress_batch(data, sizes, out_cap)
+
+
 KERNEL_DECODERS = {
     "lz4": _lz4_decompress_batch,
+    "snappy": _snappy_decompress_batch,
 }
 
 KERNEL_ENCODERS = {
     "lz4": _lz4_compress_batch,
+    "snappy": _snappy_compress_batch,
 }

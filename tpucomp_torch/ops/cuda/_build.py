@@ -19,7 +19,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("lz4_decode", "lz4_encode")
+KERNELS = ("lz4_decode", "lz4_encode", "snappy_decode", "snappy_encode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,4 +1,5 @@
-// Warp-cooperative byte moves shared by the LZ kernels.
+// Warp-cooperative byte moves shared by the LZ kernels (and the encoders'
+// bounded output row and forward match extension).
 //
 // Replaces tpucomp/ops/pallas/bytecopy.py (window128, store128_wild,
 // store128_masked, copy_bytes, copy_bytes_wide, copy_pattern).  Those helpers
@@ -67,6 +68,37 @@ __device__ __forceinline__ void warp_fill(uint8_t* dst, long long lo, long long 
                                           uint8_t v, int lane) {
   for (long long i = lo + lane; i < hi; i += 32) dst[i] = v;
   __syncwarp();
+}
+
+// An encoder's output row: stores at and past `cap` are dropped, so a frame
+// that outgrows the row never writes past it.  put() is lane 0's single byte.
+struct OutRow {
+  uint8_t* p;
+  int cap;
+  int lane;
+  __device__ __forceinline__ void put(int o, int v) const {
+    if (lane == 0 && o < cap) p[o] = static_cast<uint8_t>(v);
+  }
+  __device__ __forceinline__ void fill(int lo, int hi, uint8_t v) const {
+    warp_fill(p, lo, min(hi, cap), v, lane);
+  }
+  __device__ __forceinline__ void copy(int o, const uint8_t* src, int n) const {
+    warp_copy(p + o, src, max(0, min(n, cap - o)), lane);
+  }
+};
+
+// Common-prefix length of in[a..] and in[c..], at most cap_n: 32 byte pairs a
+// step, the first mismatch (or the cap) found by ballot.
+__device__ __forceinline__ int warp_match_len(const uint8_t* __restrict__ in,
+                                              int a, int c, int cap_n, int lane) {
+  int l = 0;
+  while (true) {
+    const int i = l + lane;
+    const bool ok = i < cap_n && in[a + i] == in[c + i];
+    const unsigned bad = __ballot_sync(kFullMask, !ok);
+    if (bad) return min(l + __ffs(bad) - 1, cap_n);
+    l += 32;
+  }
 }
 
 }  // namespace tpucomp

@@ -48,38 +48,8 @@ constexpr int kMfLimit = 12;
 constexpr int kLastLiterals = 5;
 constexpr int kWarpsPerBlock = 4;
 
-// Output row: stores at and past `cap` are dropped.
-struct Out {
-  uint8_t* p;
-  int cap;
-  int lane;
-  __device__ __forceinline__ void put(int o, int v) const {
-    if (lane == 0 && o < cap) p[o] = static_cast<uint8_t>(v);
-  }
-  __device__ __forceinline__ void fill(int lo, int hi, uint8_t v) const {
-    tpucomp::warp_fill(p, lo, min(hi, cap), v, lane);
-  }
-  __device__ __forceinline__ void copy(int o, const uint8_t* src, int n) const {
-    tpucomp::warp_copy(p + o, src, max(0, min(n, cap - o)), lane);
-  }
-};
-
-// Common-prefix length of in[a..] and in[c..], at most cap_n: 32 byte pairs a
-// step, the first mismatch (or the cap) found by ballot.
-__device__ __forceinline__ int match_len(const uint8_t* __restrict__ in, int a,
-                                         int c, int cap_n, int lane) {
-  int l = 0;
-  while (true) {
-    const int i = l + lane;
-    const bool ok = i < cap_n && in[a + i] == in[c + i];
-    const unsigned bad = __ballot_sync(tpucomp::kFullMask, !ok);
-    if (bad) return min(l + __ffs(bad) - 1, cap_n);
-    l += 32;
-  }
-}
-
 // LZ4 length extension: k / 255 bytes of 255, then k % 255.
-__device__ __forceinline__ int put_ext(const Out& w, int o, int k) {
+__device__ __forceinline__ int put_ext(const tpucomp::OutRow& w, int o, int k) {
   const int n255 = k / 255;
   w.fill(o, o + n255, 255);
   w.put(o + n255, k % 255);
@@ -88,7 +58,7 @@ __device__ __forceinline__ int put_ext(const Out& w, int o, int k) {
 
 // One sequence: token, literal-length extension, ll literals from `lit`,
 // then (when ml > 0) the 2-byte offset and the match-length extension.
-__device__ __forceinline__ int emit_seq(const Out& w, int op,
+__device__ __forceinline__ int emit_seq(const tpucomp::OutRow& w, int op,
                                         const uint8_t* lit, int ll, int ml,
                                         int off) {
   w.put(op++, (min(ll, 15) << 4) | min(max(ml - kMinMatch, 0), 15));
@@ -121,7 +91,8 @@ lz4_encode_kernel(const uint8_t* __restrict__ data,
   const int32_t* c4 = cand + row;
   const int32_t* c8 = cand8 + row;
   const int32_t* nx = nxt + row;
-  const Out w{out + static_cast<size_t>(chunk) * out_cap, out_cap, lane};
+  const tpucomp::OutRow w{out + static_cast<size_t>(chunk) * out_cap, out_cap,
+                          lane};
   const int size = min(max(sizes[chunk], 0), cap);
   const int mflimit = size - kMfLimit;
   const int match_cap_end = size - kLastLiterals;
@@ -134,9 +105,11 @@ lz4_encode_kernel(const uint8_t* __restrict__ data,
     const int p4 = c4p >= 0 ? c4p : c8p;
     const int p8 = c8p >= 0 ? c8p : p4;
     const int fcap = match_cap_end - (nm + kMinMatch);
-    const int l4 = match_len(in, nm + kMinMatch, p4 + kMinMatch, fcap, lane);
-    const int l8 = p8 != p4
-        ? match_len(in, nm + kMinMatch, p8 + kMinMatch, fcap, lane) : l4;
+    const int l4 =
+        tpucomp::warp_match_len(in, nm + kMinMatch, p4 + kMinMatch, fcap, lane);
+    const int l8 = p8 != p4 ? tpucomp::warp_match_len(in, nm + kMinMatch,
+                                                      p8 + kMinMatch, fcap, lane)
+                            : l4;
     const int src = l8 > l4 ? p8 : p4;
     int nm2 = nm, src2 = src;
     while (nm2 > anchor && src2 > 0 && in[nm2 - 1] == in[src2 - 1]) {
