@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""On-card smoke run of tpucomp_torch: batched LZ4 and Snappy, and the
-Manager frame path with CRC32 checksums, on one NVIDIA GPU.
+"""On-card smoke run of tpucomp_torch: batched LZ4, Snappy, Deflate (algos
+0, 1, 2) and gzip, and the Manager frame path with CRC32 checksums, on one
+NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``:
 
@@ -10,21 +11,28 @@ Phases, each printing its own lines; any failure ends the run with a non-zero
 exit code and no result line:
 
 1. device: name, count, and ``nvidia-smi``'s name and power limit;
-2. build: the four CUDA kernels from ``tpucomp_torch/ops/cuda/csrc`` (one
+2. build: the six CUDA libraries from ``tpucomp_torch/ops/cuda/csrc`` (one
    ``nvcc`` each, in parallel), with their ``-Xptxas -v`` register/shared-memory
    lines;
-3. kernel vs plain: each kernel on the card against its plain version on a
-   host copy of the same inputs (<= 8 chunks per corpus at the main path's
-   64 KiB shape, edge and hand-made streams, truncated and bit-flipped
-   streams, an out_cap that is too small); exact equality of bytes, sizes and
-   statuses;
+3. kernel vs plain: each of the eight kernels on the card against its plain
+   version on a host copy of the same inputs (<= 8 chunks per corpus at the
+   main path's 64 KiB shape, edge and hand-made streams, truncated and
+   bit-flipped streams, an out_cap that is too small; for Deflate, zlib
+   levels 0/1/6/9, libdeflate, a multi-block stream, gzip members through
+   the decoder's ``starts``, and the encoder's three modes, with
+   ``dyn_tables`` on the card against the CPU); exact equality of bytes,
+   sizes and statuses;
 4. full width: two 64 MiB corpora from seed 42 (``mortgage_like``,
    ``mixed_corpus``) cut into 1024 chunks of 64 KiB, one batch each, through
-   ``batched.compress`` / ``batched.decompress`` (backend "auto") for LZ4 and
-   Snappy, with the launch counts of that run, bit-exact round trips, liblz4
-   and libsnappy reading the port's frames, and CUDA-event timings;
+   ``batched.compress`` / ``batched.decompress`` (backend "auto") for LZ4,
+   Snappy and Deflate algos 0, 1, 2, and ``batched.decompress("gzip")``,
+   with the launch counts of that run, bit-exact round trips, the decoders
+   reading streams staged by liblz4 / libsnappy / zlib level 6 / gzip, liblz4,
+   libsnappy, zlib and libdeflate reading the port's frames, and CUDA-event
+   timings;
 5. manager: each corpus as one 64 MiB buffer through ``Manager(fmt, 65536,
-   COMPUTE_AND_VERIFY)`` for LZ4 and Snappy, ``create_manager`` and
+   COMPUTE_AND_VERIFY)`` for LZ4, Snappy and Deflate (algo 1),
+   ``create_manager`` and
    ``decompress`` (bit-exact, ``SUCCESS``), a flipped payload byte
    (``ERROR_BAD_CHECKSUM``), the frame without its CRC tables through a
    ``NO_COMPUTE_NO_VERIFY`` manager, with its own launch counts and timings;
@@ -40,6 +48,8 @@ import json
 import subprocess
 import sys
 import time
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -56,7 +66,12 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "lz4_encode": ("lz4_encode.cu", "tpucomp/ops/pallas/lz4_encode2.py:50"),
     "snappy_decode": ("snappy_decode.cu", "tpucomp/ops/pallas/snappy_decode.py:29"),
     "snappy_encode": ("snappy_encode.cu", "tpucomp/ops/pallas/snappy_encode2.py:33"),
+    "deflate_decode": ("deflate_decode.cu", "tpucomp/ops/pallas/deflate_decode.py:65"),
+    "deflate_encode_fixed": ("deflate_encode.cu", "tpucomp/ops/pallas/deflate_encode.py:47"),
+    "deflate_encode_hist": ("deflate_encode.cu", "tpucomp/ops/pallas/deflate_encode.py:47"),
+    "deflate_encode_emit": ("deflate_encode.cu", "tpucomp/ops/pallas/deflate_encode.py:47"),
 }
+ALGOS = (0, 1, 2)
 
 
 def check(ok: bool, what: str) -> None:
@@ -121,19 +136,25 @@ def main() -> int:
     from tpucomp_torch.chunk import ChunkBatch
     from tpucomp_torch.constants import Status
     from tpucomp_torch.formats import crc32
+    from tpucomp_torch.formats import deflate as fdeflate
+    from tpucomp_torch.formats import gzip as fgzip
     from tpucomp_torch.formats import lz4 as flz4
     from tpucomp_torch.formats import snappy as fsnappy
     from tpucomp_torch.interop import cpu as interop
     from tpucomp_torch.manager import ChecksumPolicy, Manager, create_manager
     from tpucomp_torch.ops import match
-    from tpucomp_torch.ops.cuda import (_build, lz4_decode2, lz4_encode2, snappy_decode,
-                                        snappy_encode2)
+    from tpucomp_torch.ops.cuda import (_build, deflate_decode, deflate_encode, lz4_decode2,
+                                        lz4_encode2, snappy_decode, snappy_encode2)
     from tpucomp_torch.utils import synth
 
     counters = {"lz4_decode": lz4_decode2.decompress_batch,
                 "lz4_encode": lz4_encode2.emit_kernel,
                 "snappy_decode": snappy_decode.decompress_batch,
-                "snappy_encode": snappy_encode2.emit_kernel}
+                "snappy_encode": snappy_encode2.emit_kernel,
+                "deflate_decode": deflate_decode.decompress_batch,
+                "deflate_encode_fixed": deflate_encode.fixed_kernel,
+                "deflate_encode_hist": deflate_encode.hist_kernel,
+                "deflate_encode_emit": deflate_encode.emit_kernel}
 
     def reset_counts() -> None:
         for fn in counters.values():
@@ -169,10 +190,14 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s; liblz4 "
           f"{'loaded' if have['lz4'] else 'did not load: the port encoder stages decode inputs'}"
           f"; libsnappy "
-          f"{'loaded' if have['snappy'] else 'did not load: the port encoder stages decode inputs'}")
+          f"{'loaded' if have['snappy'] else 'did not load: the port encoder stages decode inputs'}"
+          f"; libdeflate {'loaded' if have['libdeflate'] else 'did not load'}")
     out_caps = {"lz4": flz4.max_compressed_chunk_size(CHUNK),
                 "snappy": fsnappy.max_compressed_chunk_size(CHUNK)}
     oracle = {"lz4": interop.lz4_compress, "snappy": interop.snappy_compress}
+    dcap = fdeflate.max_compressed_chunk_size(CHUNK)
+    gcap = fgzip.max_compressed_chunk_size(CHUNK)
+    pool = ThreadPoolExecutor(8)   # zlib releases the GIL: staging and checks in parallel
 
     def stage(fmt: str, chunks: list[bytes]) -> list[bytes]:
         """Compressed streams for the decoder: the C library's, else the port's."""
@@ -188,6 +213,7 @@ def main() -> int:
     plain_ms = {k: 0.0 for k in KERNELS}
 
     def compare(name, kernel_fn, plain_fn, args_cpu, label):
+        """Kernel on the card vs plain version on the host; returns the plain result."""
         got = kernel_fn(*[a.to(dev) if torch.is_tensor(a) else a for a in args_cpu])
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -197,11 +223,13 @@ def main() -> int:
                   if g.numel() else 0 for g, w in zip(got, want))
         max_err[name] = max(max_err[name], err)
         same = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
-        stats = np.bincount(want[2].numpy(), minlength=16)
+        stats = (np.bincount(want[2].numpy(), minlength=16) if len(want) == 3
+                 else np.zeros(16, np.int64))
         print(f"[kernel=plain] {name} {label}: B={args_cpu[0].shape[0]} "
               f"tolerance=exact equal={same} max_abs_err={err} statuses(ok/cannot/small)="
               f"{stats[0]}/{stats[12]}/{stats[15]}")
         check(same, f"{name} kernel differs from its plain version on {label}")
+        return want
 
     def fuzz(good: bytes) -> list[bytes]:
         """Truncations and bit flips, built as tests/test_pallas_fuzz.py builds them."""
@@ -268,6 +296,74 @@ def main() -> int:
             compare(f"{fmt}_encode", kernel_fn, plain_fn, (enc_in.data, enc_in.sizes, cap),
                     f"{enc_in.num_chunks} chunks, {label}")
 
+    # Deflate decode: zlib levels 6 (every head chunk) and 0/1/9, libdeflate, a
+    # multi-block stream, the corrupt streams of tests/test_pallas_deflate.py:101-108,
+    # fuzz; then gzip members through the decoder's starts
+    dstreams = [interop.deflate_compress(c, 6) for c in head["mortgage"] + head["mixed"]]
+    dstreams += [interop.deflate_compress(c, lv) for c in [head["mixed"][0], head["mortgage"][0]]
+                 + edge_raw for lv in (0, 1, 9)]
+    if have["libdeflate"]:
+        dstreams += [interop.libdeflate_compress(c, 9) for c in head["mixed"][:2]]
+    co = zlib.compressobj(6, zlib.DEFLATED, -15)
+    dstreams.append(co.compress(head["mixed"][1][:20000]) + co.flush(zlib.Z_FULL_FLUSH)
+                    + co.compress(head["mixed"][1][20000:]) + co.flush())
+    dgood = interop.deflate_compress(synth.mixed_corpus(2048, seed=33).tobytes(), 6)
+    dstreams += [dgood] + fuzz(dgood) + [
+        b"\x07" * 40, b"\x05\x00", b"\x01\x05\x00\x00\x00hi", b"\x01\xff\xff\x00\x00",
+        bytes(np.random.default_rng(9).integers(0, 256, 96, dtype=np.uint8)), b""]
+    dec_in = ChunkBatch.from_chunks(dstreams, dcap, device="cpu")
+    for cap, label in ((CHUNK, "64 KiB out_cap"), (1000, "out_cap too small")):
+        compare("deflate_decode", deflate_decode.decompress_batch,
+                deflate_decode.decompress_batch_plain, (dec_in.data, dec_in.sizes, cap),
+                f"{len(dstreams)} streams, {label}")
+    gz = [interop.gzip_compress(c) for c in head["mixed"][:4] + [b"", b"gzip " * 999]]
+    gz += [gz[0][:-6] + bytes([gz[0][-6] ^ 0xFF]) + gz[0][-5:], gz[1][:20]]
+    gz_in = ChunkBatch.from_chunks(gz, gcap, device="cpu")
+    g_off, g_end, _, _, g_ok = fgzip.parse_member(gz_in.data, gz_in.sizes)
+    compare("deflate_decode",
+            lambda c, e, oc, st: deflate_decode.decompress_batch(c, e, oc, starts=st),
+            lambda c, e, oc, st: deflate_decode.decompress_batch_plain(c, e, oc, starts=st),
+            (gz_in.data, g_end, CHUNK, torch.where(g_ok, g_off, 0)),
+            f"{len(gz)} gzip members at their starts")
+
+    # Deflate encode: the three modes at out_cap = bound and 1024, with and
+    # without matches, and dyn_tables on the card against the CPU
+    d_in = ChunkBatch.from_chunks(enc_rows + [head["mixed"][0]] * 6, CHUNK, device="cpu")
+    d_in.sizes[len(enc_rows):] = torch.tensor((0, 1, 3, 4, 5, 20), dtype=torch.int32)
+    dc_cpu = match.candidates2(d_in.data, d_in.sizes, window=deflate_encode.WINDOW)
+    dc_gpu = match.candidates2(d_in.data.to(dev), d_in.sizes.to(dev),
+                               window=deflate_encode.WINDOW)
+    check(all(torch.equal(g.cpu(), c) for g, c in zip(dc_gpu, dc_cpu)),
+          "candidates2 (32 KiB window) on the card differs from the CPU")
+    dargs = (d_in.data, d_in.sizes, *dc_cpu)
+    for cap, label in ((dcap, "out_cap = bound"), (1024, "out_cap too small")):
+        compare("deflate_encode_fixed",
+                lambda d, s, a, b, n, oc: deflate_encode.fixed_kernel(d, s, (a, b, n), oc),
+                lambda d, s, a, b, n, oc: deflate_encode.fixed_plain(d, s, (a, b, n), oc),
+                dargs + (cap,), f"{d_in.num_chunks} chunks, algo 0, {label}")
+    for eo in (False, True):
+        how = "entropy only (algo 2)" if eo else "matches (algo 1)"
+        a_cpu = dargs if not eo else (d_in.data, d_in.sizes)
+
+        def cands_of(rest):
+            return None if eo else tuple(rest)
+
+        llh, dh = compare("deflate_encode_hist",
+                          lambda d, s, *c: deflate_encode.hist_kernel(d, s, cands_of(c)),
+                          lambda d, s, *c: deflate_encode.hist_plain(d, s, cands_of(c)),
+                          a_cpu, f"{d_in.num_chunks} chunks, {how}")
+        tables = deflate_encode.dyn_tables(llh, dh)
+        t_gpu = deflate_encode.dyn_tables(llh.to(dev), dh.to(dev))
+        check(all(torch.equal(g.cpu(), c) for g, c in zip(t_gpu, tables)),
+              f"dyn_tables on the card differs from the CPU ({how})")
+        print(f"[kernel=plain] dyn_tables on the card == on the CPU ({how}); dynamic "
+              f"headers in {int((tables[2] > 3).sum())} of {d_in.num_chunks} chunks")
+        for cap, label in ((dcap, "out_cap = bound"), (1024, "out_cap too small")):
+            compare("deflate_encode_emit",
+                    lambda d, s, *r: deflate_encode.emit_kernel(d, s, cands_of(r[:-4]), *r[-4:]),
+                    lambda d, s, *r: deflate_encode.emit_plain(d, s, cands_of(r[:-4]), *r[-4:]),
+                    a_cpu + tables + (cap,), f"{d_in.num_chunks} chunks, {how}, {label}")
+
     # ------------------------------------------------------------ 4 full width
     batches, staged = {}, {}
     for name, raw in corpora.items():
@@ -276,16 +372,27 @@ def main() -> int:
         for fmt in out_caps:
             staged[name, fmt] = ChunkBatch.from_chunks(stage(fmt, chunks), out_caps[fmt],
                                                        device=dev)
+        # zlib level 6, as bench.py:157-158 stages Deflate input
+        staged[name, "deflate"] = ChunkBatch.from_chunks(
+            list(pool.map(interop.deflate_compress, chunks)), dcap, device=dev)
+        staged[name, "gzip"] = ChunkBatch.from_chunks(
+            list(pool.map(interop.gzip_compress, chunks)), gcap, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    results = {}
+    results, dresults, dstaged = {}, {}, {}
     for name, cb in batches.items():          # the main path, once
         for fmt in out_caps:
             comp, cst = batched.compress(fmt, cb)
             dec, dst = batched.decompress(fmt, comp, CHUNK)
             sdec, sdst = batched.decompress(fmt, staged[name, fmt], CHUNK)
             results[name, fmt] = (comp, cst, dec, dst, sdec, sdst)
+        for algo in ALGOS:
+            comp, cst = batched.compress("deflate", cb, fdeflate.DeflateOpts(algo))
+            dec, dst = batched.decompress("deflate", comp, CHUNK)
+            dresults[name, algo] = (comp, cst, dec, dst)
+        dstaged[name] = (batched.decompress("deflate", staged[name, "deflate"], CHUNK)
+                         + batched.decompress("gzip", staged[name, "gzip"], CHUNK))
     torch.cuda.synchronize()
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -338,19 +445,96 @@ def main() -> int:
                "candidates2_ms": t_cand, "emit_kernel_ms": t_emit,
                "emit_kernel_GBps": raw_bytes / t_emit / 1e6}
         print(f"[full] {json.dumps(row)}")
+
+    def zlib_reads(f_r) -> bool:
+        return zlib.decompress(f_r[0], -15) == f_r[1]
+
+    def libdeflate_reads(f_r) -> bool:
+        return interop.libdeflate_decompress(f_r[0], len(f_r[1])) == f_r[1]
+
+    win = deflate_encode.WINDOW
+    for (name, algo), (comp, cst, dec, dst) in dresults.items():
+        cb = batches[name]
+        B, sizes = cb.num_chunks, cb.sizes
+        check(bool((cst == Status.SUCCESS).all()) and bool((dst == Status.SUCCESS).all()),
+              f"{name} deflate algo {algo}: statuses")
+        check(torch.equal(dec.sizes, cb.sizes) and torch.equal(dec.data, cb.data),
+              f"{name} deflate algo {algo}: round trip through the port's frames")
+        pairs = list(zip(comp.chunk_list(), cb.chunk_list()))
+        check(all(pool.map(zlib_reads, pairs)),
+              f"{name} deflate algo {algo}: zlib does not read the port's frames back")
+        if have["libdeflate"]:
+            check(all(pool.map(libdeflate_reads, pairs)),
+                  f"{name} deflate algo {algo}: libdeflate does not read the port's frames")
+        raw_bytes, comp_bytes = int(cb.total_bytes), int(comp.total_bytes)
+        opts = fdeflate.DeflateOpts(algo)
+        t_comp = time_ms(torch, lambda: batched.compress("deflate", cb, opts))
+        t_dec = time_ms(torch, lambda: deflate_decode.decompress_batch(comp.data, comp.sizes,
+                                                                       CHUNK))
+        row = {"corpus": name, "format": "deflate", "algo": algo, "chunks": B,
+               "raw_bytes": raw_bytes, "ratio": raw_bytes / comp_bytes,
+               "compress_ms": t_comp, "compress_GBps": raw_bytes / t_comp / 1e6,
+               "decompress_ms": t_dec, "decompress_GBps": raw_bytes / t_dec / 1e6}
+        cands = None
+        if algo != 2:
+            cands = match.candidates2(cb.data, sizes, window=win)
+            row["candidates2_ms"] = time_ms(torch, lambda: match.candidates2(cb.data, sizes,
+                                                                            window=win))
+        io_bytes = raw_bytes + 4 * B
+        if algo == 0:
+            t = time_ms(torch, lambda: deflate_encode.fixed_kernel(cb.data, sizes, cands, dcap))
+            row["fixed_kernel_ms"] = t
+            kernel_ms["deflate_encode_fixed"] += t
+            bound["deflate_encode_fixed"] += bytes_bound_ms(io_bytes, B * dcap + 8 * B)
+        else:
+            llh, dh = deflate_encode.hist_kernel(cb.data, sizes, cands)
+            tables = deflate_encode.dyn_tables(llh, dh)
+            t_hist = time_ms(torch, lambda: deflate_encode.hist_kernel(cb.data, sizes, cands))
+            t_emit = time_ms(torch, lambda: deflate_encode.emit_kernel(cb.data, sizes, cands,
+                                                                       *tables, dcap))
+            row.update(hist_kernel_ms=t_hist,
+                       dyn_tables_ms=time_ms(torch, lambda: deflate_encode.dyn_tables(llh, dh)),
+                       emit_kernel_ms=t_emit,
+                       dynamic_headers=int((tables[2] > 3).sum()))
+            if algo == 1:       # the kernels line carries algo 1 (algo 2: the [full] rows)
+                kernel_ms["deflate_encode_hist"] += t_hist
+                kernel_ms["deflate_encode_emit"] += t_emit
+                bound["deflate_encode_hist"] += bytes_bound_ms(io_bytes, B * 318 * 4)
+                bound["deflate_encode_emit"] += bytes_bound_ms(io_bytes + B * 399 * 4,
+                                                               B * dcap + 8 * B)
+        print(f"[full] {json.dumps(row)}")
+    for name, (sdec, sdst, gdec, gdst) in dstaged.items():
+        cb = batches[name]
+        B, raw_bytes = cb.num_chunks, int(cb.total_bytes)
+        for fmt, d, st in (("deflate", sdec, sdst), ("gzip", gdec, gdst)):
+            check(bool((st == Status.SUCCESS).all()) and torch.equal(d.sizes, cb.sizes)
+                  and torch.equal(d.data, cb.data),
+                  f"{name} {fmt}: decode of the zlib-staged streams is not bit-exact")
+        sd, gd = staged[name, "deflate"], staged[name, "gzip"]
+        t_dec = time_ms(torch, lambda: deflate_decode.decompress_batch(sd.data, sd.sizes, CHUNK))
+        t_gz = time_ms(torch, lambda: batched.decompress("gzip", gd, CHUNK))
+        kernel_ms["deflate_decode"] += t_dec
+        bound["deflate_decode"] += bytes_bound_ms(int(sd.total_bytes) + 8 * B,
+                                                  B * CHUNK + 8 * B)
+        for fmt, sb, t in (("deflate", sd, t_dec), ("gzip", gd, t_gz)):
+            row = {"corpus": name, "format": fmt, "staged_by": "zlib level 6", "chunks": B,
+                   "staged_ratio": raw_bytes / int(sb.total_bytes), "decompress_ms": t,
+                   "decompress_GBps": raw_bytes / t / 1e6}
+            print(f"[full] {json.dumps(row)}")
     print(f"[full] peak device memory of the main-path run: {peak} bytes")
-    del results, staged
+    del results, staged, dresults, dstaged
 
     # --------------------------------------------------------------- 5 manager
     verify = ChecksumPolicy.COMPUTE_AND_VERIFY
     bufs = {name: torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(dev)
             for name, raw in corpora.items()}
+    mgr_opts = {"lz4": None, "snappy": None, "deflate": fdeflate.DeflateOpts(algo=1)}
     torch.cuda.synchronize()
     reset_counts()
     frames = {}
     for name, buf in bufs.items():            # the Manager path, once
-        for fmt in out_caps:
-            frame = Manager(fmt, CHUNK, checksum_policy=verify).compress(buf)
+        for fmt, opts in mgr_opts.items():
+            frame = Manager(fmt, CHUNK, opts, checksum_policy=verify).compress(buf)
             mgr = create_manager(frame)
             cfg = mgr.configure_decompression(frame)
             out = mgr.decompress(frame, cfg)
@@ -358,7 +542,8 @@ def main() -> int:
     torch.cuda.synchronize()
     mgr_launches = read_counts()
     print(f"[manager] launches in the Manager-path run: {mgr_launches}")
-    check(all(v > 0 for v in mgr_launches.values()),
+    # algo 1 runs the hist and emit walks, not the fixed one
+    check(all(v > 0 for k, v in mgr_launches.items() if k != "deflate_encode_fixed"),
           f"a kernel was not launched on the Manager path: {mgr_launches}")
     for (name, fmt), (frame, mgr, cfg, out) in frames.items():
         buf = bufs[name]
@@ -375,7 +560,7 @@ def main() -> int:
         mgr.decompress(bad, bcfg)
         check(bcfg.get_status() == Status.ERROR_BAD_CHECKSUM,
               f"manager {name} {fmt}: a flipped payload byte gave {bcfg.get_status()!r}")
-        plain_mgr = Manager(fmt, CHUNK)
+        plain_mgr = Manager(fmt, CHUNK, mgr_opts[fmt])
         stripped = without_crc_tables(host, n)
         check(stripped.tobytes() == plain_mgr.compress(buf).cpu().numpy().tobytes(),
               f"manager {name} {fmt}: the frame minus its CRC tables differs from "
@@ -385,13 +570,14 @@ def main() -> int:
               and pcfg.get_status() == Status.SUCCESS,
               f"manager {name} {fmt}: the frame without CRC tables does not read back")
 
-        m = Manager(fmt, CHUNK, checksum_policy=verify)
+        m = Manager(fmt, CHUNK, mgr_opts[fmt], checksum_policy=verify)
         t_comp = time_ms(torch, lambda: m.compress(buf))
         t_dec = time_ms(torch, lambda: mgr.decompress(frame, cfg))
         cb = batches[name]
         t_crc = time_ms(torch, lambda: crc32.crc32_batch(cb.data, cb.sizes))
         raw_bytes = buf.numel()
-        row = {"corpus": name, "format": fmt, "policy": verify.name, "chunks": n,
+        row = {"corpus": name, "format": fmt, "opts": repr(mgr_opts[fmt]),
+               "policy": verify.name, "chunks": n,
                "raw_bytes": raw_bytes, "frame_bytes": frame.numel(),
                "frame_ratio": raw_bytes / frame.numel(),
                "compress_ms": t_comp, "compress_GBps": raw_bytes / t_comp / 1e6,
@@ -409,9 +595,10 @@ def main() -> int:
                         "max_abs_err": max_err[name], "ms": kernel_ms[name],
                         "plain_ms": plain_ms[name], "bound_ms": bound[name],
                         "bound_by": "bytes", "library_ms": None})
-    print("[kernels] ms, bound_ms: the two full-width corpora summed; launches: the "
+    print("[kernels] ms, bound_ms: the two full-width corpora summed (deflate_decode on "
+          "the zlib-staged streams, deflate_encode_hist/emit in algo 1); launches: the "
           "batched main-path run; plain_ms: the plain version on the phase-3 inputs "
-          "(host); no PyTorch call computes LZ4 or Snappy")
+          "(host); no PyTorch call computes LZ4, Snappy or Deflate")
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -191,7 +191,7 @@ def test_unported_paths_raise_not_implemented():
 
 
 def test_api_parity_shims():
-    assert batched.formats() == ["lz4", "snappy"]
+    assert batched.formats() == ["deflate", "gzip", "lz4", "snappy"]
     assert batched.compress_get_temp_size("lz4", 10, 65536) == 0
     assert batched.decompress_get_temp_size("lz4", 10, 65536) == 0
     assert batched.compress_get_temp_size_ex("lz4", 10, 65536, 1 << 20) == 0
@@ -244,6 +244,9 @@ def test_import_leaves_jax_and_reference_out():
             "tpucomp_torch.ops.cuda.lz4_decode2, tpucomp_torch.ops.cuda.lz4_encode2, "
             "tpucomp_torch.ops.cuda.snappy_decode, tpucomp_torch.ops.cuda.snappy_encode2, "
             "tpucomp_torch.formats.snappy, tpucomp_torch.formats.crc32, "
+            "tpucomp_torch.formats.deflate, tpucomp_torch.formats.gzip, "
+            "tpucomp_torch.ops.cuda.huffman, tpucomp_torch.ops.cuda.deflate_decode, "
+            "tpucomp_torch.ops.cuda.deflate_encode, "
             "tpucomp_torch.manager, tpucomp_torch.utils.synth, tpucomp_torch.interop.cpu\n"
             "tpucomp_torch.batched.formats()\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tpucomp')]\n"

@@ -17,12 +17,15 @@ from tpucomp_torch import batched
 from tpucomp_torch.chunk import ChunkBatch
 from tpucomp_torch.constants import Status
 from tpucomp_torch.formats import crc32
+from tpucomp_torch.formats import deflate as fdeflate
+from tpucomp_torch.formats import gzip as fgzip
 from tpucomp_torch.formats import lz4 as flz4
 from tpucomp_torch.formats import snappy as fsnappy
 from tpucomp_torch.interop import cpu as interop
 from tpucomp_torch.manager import ChecksumPolicy, Manager, create_manager
 from tpucomp_torch.ops import match
-from tpucomp_torch.ops.cuda import lz4_decode2, lz4_encode2, snappy_decode, snappy_encode2
+from tpucomp_torch.ops.cuda import (deflate_decode, deflate_encode, lz4_decode2, lz4_encode2,
+                                    snappy_decode, snappy_encode2)
 from tpucomp_torch.utils import synth
 
 pytestmark = pytest.mark.cuda
@@ -167,17 +170,95 @@ def test_crc32_on_card_equals_cpu(card):
                        crc32.crc32_batch(cb.data, cb.sizes))
 
 
-@pytest.mark.parametrize("fmt", ["lz4", "snappy"])
+@pytest.mark.parametrize("fmt", ["lz4", "snappy", "deflate"])
 def test_manager_on_card(card, fmt):
     buf = synth.mixed_corpus(1 << 20, seed=10).tobytes()
-    mgr = Manager(fmt, 65536, checksum_policy=ChecksumPolicy.COMPUTE_AND_VERIFY)
+    opts = fdeflate.DeflateOpts(1) if fmt == "deflate" else None
+    mgr = Manager(fmt, 65536, opts, checksum_policy=ChecksumPolicy.COMPUTE_AND_VERIFY)
     frame = mgr.compress(buf)                       # device=None: the card
     assert frame.is_cuda
     assert frame.cpu().numpy().tobytes() == Manager(
-        fmt, 65536, checksum_policy=ChecksumPolicy.COMPUTE_AND_VERIFY,
+        fmt, 65536, opts, checksum_policy=ChecksumPolicy.COMPUTE_AND_VERIFY,
         device="cpu").compress(buf).numpy().tobytes()
     mgr2 = create_manager(frame)
     cfg = mgr2.configure_decompression(frame)
     out = mgr2.decompress(frame, cfg)
     assert out.is_cuda and cfg.get_status() == Status.SUCCESS
     assert out.cpu().numpy().tobytes() == buf
+
+
+def _deflate_streams(cap: int):
+    import zlib
+    rng = np.random.default_rng(cap + 3)
+    raws = [synth.mixed_corpus(cap + 64, seed=3)[:cap].tobytes(),
+            synth.mortgage_like(cap, seed=4).tobytes(), b"", b"x", b"\x00" * cap,
+            b"ab" * (cap // 2), bytes(rng.integers(0, 256, cap, dtype=np.uint8))]
+    comp = [interop.deflate_compress(r, level) for r in raws for level in (0, 1, 6, 9)]
+    if interop.available()["libdeflate"]:
+        comp += [interop.libdeflate_compress(r, 9) for r in raws[:2]]
+    co = zlib.compressobj(6, zlib.DEFLATED, -15)
+    comp.append(co.compress(raws[0][:cap // 3]) + co.flush(zlib.Z_FULL_FLUSH)
+                + co.compress(raws[0][cap // 3:]) + co.flush())
+    good = comp[8]
+    comp += [good[:k] for k in (1, 2, len(good) // 2, len(good) - 1)]
+    for _ in range(8):
+        b = bytearray(good)
+        b[rng.integers(0, len(good))] ^= 1 << rng.integers(0, 8)
+        comp.append(bytes(b))
+    return comp + [b"\x07" * 40, b"\x05\x00", b"\x01\x05\x00\x00\x00hi",
+                   b"\x01\xff\xff\x00\x00", bytes(rng.integers(0, 256, 96, dtype=np.uint8))]
+
+
+@pytest.mark.parametrize("out_cap", ["fits", 1000])
+@pytest.mark.parametrize("cap", [4096, 65536])
+def test_deflate_decode_kernel_equals_plain(card, cap, out_cap):
+    cb = ChunkBatch.from_chunks(_deflate_streams(cap), fdeflate.max_compressed_chunk_size(cap),
+                                device="cpu")
+    oc = cap if out_cap == "fits" else out_cap
+    before = deflate_decode.decompress_batch.launches
+    got = deflate_decode.decompress_batch(cb.data.to(card), cb.sizes.to(card), oc)
+    torch.cuda.synchronize()
+    assert deflate_decode.decompress_batch.launches == before + 1
+    assert _equal(got, deflate_decode.decompress_batch_plain(cb.data, cb.sizes, oc))
+
+
+@pytest.mark.parametrize("out_cap", ["bound", 1024])
+@pytest.mark.parametrize("algo", [0, 1, 2])
+def test_deflate_encode_kernels_equal_plain(card, algo, out_cap):
+    cap = 65536
+    cb = _batch(cap, seed=algo + 7, short_sizes=(0, 1, 3, 4, 5, 20))
+    oc = fdeflate.max_compressed_chunk_size(cap) if out_cap == "bound" else out_cap
+    counters = [deflate_encode.fixed_kernel] if algo == 0 else [deflate_encode.hist_kernel,
+                                                                deflate_encode.emit_kernel]
+    before = [k.launches for k in counters]
+    opts = fdeflate.DeflateOpts(algo)
+    got, _ = batched.compress("deflate", ChunkBatch(cb.data.to(card), cb.sizes.to(card)),
+                              opts, oc)
+    torch.cuda.synchronize()
+    assert [k.launches for k in counters] == [b + 1 for b in before]
+    want, _ = batched.compress("deflate", cb, opts, oc)
+    assert _equal((got.data, got.sizes), (want.data, want.sizes))
+
+
+def test_deflate_hist_kernel_and_dyn_tables_on_card(card):
+    cb = _batch(65536, seed=11, short_sizes=(0, 1, 3, 4, 5, 20))
+    cands = match.candidates2(cb.data, cb.sizes, window=deflate_encode.WINDOW)
+    want = deflate_encode.hist_plain(cb.data, cb.sizes, cands)
+    got = deflate_encode.hist_kernel(cb.data.to(card), cb.sizes.to(card),
+                                     [c.to(card) for c in cands])
+    assert _equal(got, want)
+    assert _equal(deflate_encode.dyn_tables(*got), deflate_encode.dyn_tables(*want))
+
+
+def test_gzip_kernel_path_equals_plain(card):
+    raws = [synth.mixed_corpus(70000, seed=5)[:65536].tobytes(), b"", b"gzip " * 999]
+    comp = [interop.gzip_compress(r) for r in raws]
+    bad = bytearray(comp[0])
+    bad[-6] ^= 0xFF
+    comp += [bytes(bad), comp[0][:20]]
+    cb = ChunkBatch.from_chunks(comp, fgzip.max_compressed_chunk_size(65536), device="cpu")
+    got, gst = batched.decompress("gzip", ChunkBatch(cb.data.to(card), cb.sizes.to(card)),
+                                  65536)
+    want, wst = batched.decompress("gzip", cb, 65536)
+    assert _equal((got.data, got.sizes, gst), (want.data, want.sizes, wst))
+    assert wst.tolist() == [0, 0, 0, 12, 12]

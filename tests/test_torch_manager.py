@@ -250,7 +250,7 @@ def test_not_a_frame():
 
 def test_unported_formats_and_default_device(monkeypatch):
     with pytest.raises(ValueError, match="unknown format"):
-        Manager("deflate", device="cpu")
+        Manager("zstd", device="cpu")
     with pytest.raises(ValueError, match="unknown format"):
         Manager("brotli", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

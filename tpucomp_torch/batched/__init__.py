@@ -48,6 +48,7 @@ class CodecSpec:
     default_opts: Any
     get_decompress_size: Callable | None = None  # (comp, comp_sizes) -> sizes
     elem_size: Callable[[Any], int] | None = None  # typed codecs: opts -> element bytes
+    decompression_only: bool = False  # e.g. gzip (README.md:16)
 
 
 _REGISTRY: dict[str, CodecSpec] = {}
@@ -192,6 +193,8 @@ def compress(fmt: str, batch: ChunkBatch, opts: Any = None,
     batch/output strides as ``ERROR_ALIGNMENT`` for the whole call.
     """
     spec = _get(fmt)
+    if spec.decompression_only:
+        raise ValueError(f"{fmt} provides decompression only")
     opts = opts if opts is not None else spec.default_opts
     if out_cap is None:
         out_cap = spec.max_compressed_chunk_size(batch.max_chunk_bytes, opts)
@@ -233,7 +236,8 @@ def decompress(fmt: str, comp: ChunkBatch, max_uncompressed_chunk_bytes: int,
 def get_decompress_size(fmt: str, comp: ChunkBatch) -> torch.Tensor:
     """Analog of ``nvcompBatched<Fmt>GetDecompressSizeAsync``: per-chunk
     decompressed byte counts read from the compressed streams, on the batch's
-    device (Snappy's varint preamble; LZ4's is not ported yet)."""
+    device (Snappy's varint preamble, gzip's ISIZE; LZ4's and Deflate's are
+    not ported yet)."""
     spec = _get(fmt)
     if spec.get_decompress_size is None:
         raise NotImplementedError(

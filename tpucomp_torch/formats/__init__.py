@@ -1,8 +1,8 @@
 """Format codecs registered with :mod:`tpucomp_torch.batched`.
 
-Port of :mod:`tpucomp.formats`.  LZ4 and Snappy are ported so far (and the
-CRC32 of :mod:`.crc32`, which registers no codec); the other formats follow in
-the order of ``ROADMAP.md``.
+Port of :mod:`tpucomp.formats`.  LZ4, Snappy, Deflate and gzip (decompression
+only) are ported so far (and the CRC32 of :mod:`.crc32`, which registers no
+codec); the other formats follow in the order of ``ROADMAP.md``.
 """
 from __future__ import annotations
 
@@ -18,9 +18,9 @@ def register_all() -> None:
 
     from tpucomp_torch import batched
     from tpucomp_torch.batched import CodecSpec
-    from tpucomp_torch.formats import lz4, snappy
-    from tpucomp_torch.ops.cuda import (lz4_decode2, lz4_encode2, snappy_decode,
-                                        snappy_encode2)
+    from tpucomp_torch.formats import deflate, gzip, lz4, snappy
+    from tpucomp_torch.ops.cuda import (deflate_decode, deflate_encode, lz4_decode2,
+                                        lz4_encode2, snappy_decode, snappy_encode2)
 
     batched.register(CodecSpec(
         name="lz4",
@@ -42,4 +42,22 @@ def register_all() -> None:
         max_compressed_chunk_size=snappy.max_compressed_chunk_size,
         default_opts=snappy.DEFAULT_OPTS,
         get_decompress_size=snappy.get_decompress_size,
+    ))
+    batched.register(CodecSpec(
+        name="deflate",
+        # the portable entries are the kernels' plain versions until the
+        # log-depth program of tpucomp/formats/deflate.py is ported
+        compress_batch=lambda d, s, o, c: deflate_encode.compress_algo(d, s, o, c, plain=True),
+        decompress_batch=deflate_decode.decompress_batch_plain,
+        max_compressed_chunk_size=deflate.max_compressed_chunk_size,
+        default_opts=deflate.DEFAULT_OPTS,
+    ))
+    batched.register(CodecSpec(
+        name="gzip",
+        compress_batch=gzip.no_compress,
+        decompress_batch=gzip.decompress_batch_plain,
+        max_compressed_chunk_size=gzip.max_compressed_chunk_size,
+        default_opts=None,
+        get_decompress_size=gzip.get_decompress_size,
+        decompression_only=True,
     ))

@@ -1,17 +1,19 @@
-"""CPU LZ4 and Snappy oracles via ctypes bindings to liblz4 and libsnappy.
+"""CPU oracles: liblz4, libsnappy and libdeflate via ctypes, zlib and gzip.
 
-Port of the liblz4 and libsnappy parts of :mod:`tpucomp.interop.cpu`
-(``:21-128``): the correctness oracles of the LZ4 and Snappy paths.
-CPU-compress -> GPU-decompress and GPU-compress -> CPU-decompress must both
-round-trip bit-exactly, which proves the kernels implement the public format
-rather than merely being self-inverse.  The bindings are optional: each raises
-``InteropUnavailable`` if its system library is missing.
+Port of the LZ4, Snappy, Deflate and gzip parts of :mod:`tpucomp.interop.cpu`
+(``:21-201``): the correctness oracles of those paths.  CPU-compress ->
+GPU-decompress and GPU-compress -> CPU-decompress must both round-trip
+bit-exactly, which proves the kernels implement the public format rather than
+merely being self-inverse.  zlib is Python's own and always present; the
+ctypes bindings are optional: each raises ``InteropUnavailable`` if its system
+library is missing.
 """
 from __future__ import annotations
 
 import ctypes
 import ctypes.util
 import functools
+import zlib as _zlib
 
 
 class InteropUnavailable(RuntimeError):
@@ -120,10 +122,79 @@ def snappy_decompress(data: bytes) -> bytes:
     return out.raw[:out_len.value]
 
 
+def deflate_compress(data: bytes, level: int = 6) -> bytes:
+    """RFC 1951 raw deflate via zlib (``deflateInit2(..., -15, ...)``, as
+    ``examples/deflate_cpu_compression.cu:60-101``)."""
+    c = _zlib.compressobj(level, _zlib.DEFLATED, -15)
+    return c.compress(data) + c.flush()
+
+
+def deflate_decompress(data: bytes, uncompressed_size: int | None = None) -> bytes:
+    d = _zlib.decompressobj(-15)
+    return d.decompress(data) + d.flush()
+
+
+def gzip_compress(data: bytes, level: int = 6) -> bytes:
+    """RFC 1952 gzip via zlib windowBits 15|16
+    (``examples/gzip_gpu_decompression.cu:66-80``)."""
+    c = _zlib.compressobj(level, _zlib.DEFLATED, 15 | 16)
+    return c.compress(data) + c.flush()
+
+
+def gzip_decompress(data: bytes) -> bytes:
+    d = _zlib.decompressobj(15 | 16)
+    return d.decompress(data) + d.flush()
+
+
+def zlib_compress(data: bytes, level: int = 6) -> bytes:
+    return _zlib.compress(data, level)
+
+
+@functools.lru_cache(maxsize=1)
+def _libdeflate() -> ctypes.CDLL:
+    lib = _load(["libdeflate.so.0", "libdeflate.so"])
+    lib.libdeflate_alloc_compressor.restype = ctypes.c_void_p
+    lib.libdeflate_alloc_compressor.argtypes = [ctypes.c_int]
+    lib.libdeflate_deflate_compress.restype = ctypes.c_size_t
+    lib.libdeflate_deflate_compress.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p, ctypes.c_size_t]
+    lib.libdeflate_alloc_decompressor.restype = ctypes.c_void_p
+    lib.libdeflate_alloc_decompressor.argtypes = []
+    lib.libdeflate_deflate_decompress.restype = ctypes.c_int
+    lib.libdeflate_deflate_decompress.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p,
+        ctypes.c_size_t, ctypes.POINTER(ctypes.c_size_t)]
+    return lib
+
+
+def libdeflate_compress(data: bytes, level: int = 6) -> bytes:
+    """Raw deflate via libdeflate (a second, independent oracle)."""
+    lib = _libdeflate()
+    comp = lib.libdeflate_alloc_compressor(level)
+    bound = len(data) + len(data) // 2 + 1024
+    out = ctypes.create_string_buffer(bound)
+    n = lib.libdeflate_deflate_compress(comp, data, len(data), out, bound)
+    if n == 0:
+        raise RuntimeError("libdeflate_deflate_compress failed")
+    return out.raw[:n]
+
+
+def libdeflate_decompress(data: bytes, uncompressed_size: int) -> bytes:
+    lib = _libdeflate()
+    dec = lib.libdeflate_alloc_decompressor()
+    out = ctypes.create_string_buffer(max(uncompressed_size, 1))
+    actual = ctypes.c_size_t(0)
+    rc = lib.libdeflate_deflate_decompress(dec, data, len(data), out,
+                                           uncompressed_size, ctypes.byref(actual))
+    if rc != 0:
+        raise RuntimeError(f"libdeflate_deflate_decompress failed (rc={rc})")
+    return out.raw[:actual.value]
+
+
 def available() -> dict[str, bool]:
     """Report which interop oracles can load on this system."""
-    out = {}
-    for name, loader in (("lz4", _lz4), ("snappy", _snappy)):
+    out = {"zlib": True, "gzip": True}
+    for name, loader in (("lz4", _lz4), ("snappy", _snappy), ("libdeflate", _libdeflate)):
         try:
             loader()
             out[name] = True

@@ -31,8 +31,8 @@ A manager runs on one device: ``device=None`` means the card (and raises
 without one); pass ``device="cpu"`` for the plain versions on the host.
 PyTorch runs eagerly, so there is no compiled-program cache.  Host syncs are
 the reference's two: reading the 56-byte header, and reading the frame's
-total size to trim it.  Manager("deflate") and the other formats not ported
-yet raise ``ValueError`` from the format registry.
+total size to trim it.  Formats not ported yet (``Manager("zstd")``) raise
+``ValueError`` from the format registry.
 """
 from __future__ import annotations
 
@@ -91,6 +91,8 @@ def _opts_to_blob(fmt: str, opts: Any) -> bytes:
     blob = bytearray(16)
     if fmt == "lz4":
         blob[0] = int(opts.data_type)
+    elif fmt == "deflate":
+        blob[0] = opts.algo
     return bytes(blob)   # snappy: no options, 16 zero bytes
 
 
@@ -98,6 +100,9 @@ def _opts_from_blob(fmt: str, blob: bytes) -> Any:
     if fmt == "lz4":
         from tpucomp_torch.formats.lz4 import LZ4Opts
         return LZ4Opts(data_type=ElementType(blob[0]))
+    if fmt == "deflate":
+        from tpucomp_torch.formats.deflate import DeflateOpts
+        return DeflateOpts(algo=blob[0])
     return _batched._get(fmt).default_opts
 
 

@@ -11,7 +11,13 @@ the same module, sits its plain version with the same signature.
 - :mod:`.snappy_decode` — Snappy block decode (``csrc/snappy_decode.cu``).
 - :mod:`.snappy_encode2` — Snappy emitter over :func:`tpucomp_torch.ops.match
   .candidates2` (``csrc/snappy_encode.cu``).
-- ``csrc/bytecopy.cuh`` — the warp byte-copy helpers all four share.
+- :mod:`.deflate_decode` — raw Deflate decode (``csrc/deflate_decode.cu``,
+  with the canonical Huffman tables of ``csrc/huffman.cuh`` and their plain
+  version :mod:`.huffman`); gzip runs it at each member's body.
+- :mod:`.deflate_encode` — the Deflate walk over :func:`tpucomp_torch.ops
+  .match.candidates2` in modes fixed, hist and emit
+  (``csrc/deflate_encode.cu``), with the dynamic tables in torch ops.
+- ``csrc/bytecopy.cuh`` — the warp byte-copy helpers they share.
 
 ``KERNEL_DECODERS`` / ``KERNEL_ENCODERS`` map a format name to the kernel
 path, a drop-in for the registry's ``decompress_batch`` / ``compress_batch``
@@ -42,12 +48,34 @@ def _snappy_compress_batch(data, sizes, opts, out_cap):
     return snappy_encode2.compress_batch(data, sizes, out_cap)
 
 
+def _deflate_decompress_batch(comp, comp_sizes, out_cap):
+    from tpucomp_torch.ops.cuda import deflate_decode
+    return deflate_decode.decompress_batch(comp, comp_sizes, out_cap)
+
+
+def _gzip_decompress_batch(comp, comp_sizes, out_cap):
+    """Header parse, the Deflate kernel at each member's body, CRC32/ISIZE
+    checks (``tpucomp/ops/pallas/__init__.py:126-151``)."""
+    from tpucomp_torch.formats import gzip
+    from tpucomp_torch.ops.cuda import deflate_decode
+    return gzip.decompress_batch_with(deflate_decode.decompress_batch, comp, comp_sizes,
+                                      out_cap)
+
+
+def _deflate_compress_batch(data, sizes, opts, out_cap):
+    from tpucomp_torch.ops.cuda import deflate_encode
+    return deflate_encode.compress_algo(data, sizes, opts, out_cap)
+
+
 KERNEL_DECODERS = {
     "lz4": _lz4_decompress_batch,
     "snappy": _snappy_decompress_batch,
+    "deflate": _deflate_decompress_batch,
+    "gzip": _gzip_decompress_batch,
 }
 
 KERNEL_ENCODERS = {
     "lz4": _lz4_compress_batch,
     "snappy": _snappy_compress_batch,
+    "deflate": _deflate_compress_batch,
 }

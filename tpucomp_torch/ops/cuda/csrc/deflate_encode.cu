@@ -1,0 +1,331 @@
+// Batched raw Deflate encode: the token walk, one warp per chunk, in three
+// modes (fixed, hist, emit) of one kernel body.
+//
+// Replaces the TPU kernel tpucomp/ops/pallas/deflate_encode.py::_kernel in
+// its three trace-time modes: "fixed" (called by compress_batch at
+// deflate_encode.py:541, algo 0), "hist" (compress_batch_dyn at :681) and
+// "emit" (compress_batch_dyn at :701, algos 1 and 2).  Match finding is not
+// in here: the caller first runs the sort-based candidate pass
+// (tpucomp_torch/ops/match.py::candidates2 with the 32 KiB window), which
+// gives for every position the nearest previous 4-byte match `cand`, an
+// 8-byte-prefix sort neighbour `cand8`, and `nxt`, the next position that has
+// either (all three null for entropy-only coding: no matches).  The walk is
+// the same in every mode, so the hist and emit passes see the same tokens:
+//
+//   nm = nxt[scan]; stop at nm >= mflimit = size - 3
+//   extend cand and cand8 forward, at most min(size - (nm + 4), 254) bytes;
+//   keep the longer (cand8 only if longer)
+//   back-extend while nm2 > anchor, src2 > 0 and the bytes before match
+//   ml = min(back + 4 + longer, 258): literals [anchor, nm2), the match,
+//   anchor = scan = nm2 + ml
+//
+// then the literals [anchor, size) and the end-of-block code.
+//  * fixed: header bits 011, literals and lengths in the closed-form fixed
+//    codes (8/9-bit literals, 7/8-bit length symbols, 5-bit distances),
+//    length and distance symbols from their bit lengths; EOB is 7 zero bits.
+//  * hist: counts of literal/length symbols (EOB once) and distance symbols
+//    into int32[B, 288] and int32[B, 30], zeroed first; no output bits.
+//  * emit: hdr_bits bits of hdr_words (LSB first) first, then every symbol
+//    from tab[sym] = bit-reversed code | length << 16 (distances at 288+),
+//    EOB from tab[256].
+// The stream is LSB first; a 64-bit accumulator writes 4 bytes whenever it
+// holds 32 bits and ceil(bits / 8) bytes at the end, the same bytes as the
+// TPU kernel's (lo, hi, nbits) triple.  A stream longer than stored blocks
+// (size + 5 * max(ceil(size / 65535), 1) < its bytes) is rewritten as stored
+// blocks of at most 65535 bytes with headers [last, n & 255, n >> 8, nlen &
+// 255, nlen >> 8], nlen = 0xFFFF - n; size 0 gives one empty final block.
+// A frame longer than out_cap ends as OUTPUT_BUFFER_TOO_SMALL with size 0:
+// the TPU kernel writes into a row of max(out_cap, cap + cap/2 + 64) bytes
+// (fixed) or + 3000 (emit) and drops the excess; here the bytes are counted
+// and never stored past the row (OutRow, csrc/bytecopy.cuh).  The TPU
+// kernel's 4096-position slabs over a second grid dimension only pipeline
+// the candidate arrays through SMEM; a jump past a slab is taken up by the
+// next one, so here the walk is one loop over the chunk.
+//
+// Bound: bytes.  A call must read each input byte once and write each output
+// byte once (B x out_cap, the zero tail included; hist writes B x 318
+// counts); it reads the candidate arrays only where the walk lands.  Design:
+// a warp per chunk, all lanes carrying the same walk state (broadcast loads,
+// uniform branches), lane 0 storing the stream's bytes; forward extension
+// compares 32 bytes a step with a ballot (warp_match_len); histograms and the
+// emit table live in the warp's shared memory (318 words); stored blocks are
+// copied by the whole warp.  The kernel writes every byte of the output row,
+// so the caller's buffer needs no clearing.
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+#include "bytecopy.cuh"
+
+namespace {
+
+constexpr int kSuccess = 0;
+constexpr int kOutputTooSmall = 15;
+constexpr int kMinMatch = 4;
+constexpr int kMaxMatch = 258;
+constexpr int kWarpsPerBlock = 4;
+constexpr int kNTab = 288 + 30;
+constexpr int kHdrWords = 80;
+
+enum Mode { kFixed = 0, kHist = 1, kEmit = 2 };
+
+__device__ __forceinline__ uint32_t rev_bits(uint32_t v, int n) {
+  return n ? __brev(v) >> (32 - n) : 0u;
+}
+
+// Match length -> length symbol index 0..28, extra bit count and value.
+__device__ __forceinline__ void len_sym(int ml, int& li, int& e, int& ev) {
+  const int m = ml - 3;
+  if (m < 8) {
+    li = m, e = 0, ev = 0;
+  } else if (ml == kMaxMatch) {
+    li = 28, e = 0, ev = 0;
+  } else {
+    e = 29 - __clz(m);  // bit length - 3
+    li = ((e + 1) << 2) | ((m >> e) - 4);
+    ev = m & ((1 << e) - 1);
+  }
+}
+
+// Distance -> distance symbol 0..29, extra bit count and value.
+__device__ __forceinline__ void dist_sym(int dist, int& di, int& e, int& ev) {
+  const int d = dist - 1;
+  if (d < 4) {
+    di = d, e = 0, ev = 0;
+  } else {
+    e = 30 - __clz(d);  // bit length - 2
+    di = ((e + 1) << 1) | ((d >> e) - 2);
+    ev = d & ((1 << e) - 1);
+  }
+}
+
+// The LSB-first bit stream into one output row; every lane holds the same
+// state, lane 0 stores.
+struct BitOut {
+  tpucomp::OutRow w;
+  int op;
+  uint64_t acc;
+  int nb;
+  __device__ __forceinline__ void put(uint32_t v, int n) {
+    acc |= static_cast<uint64_t>(v) << nb;
+    nb += n;
+    if (nb >= 32) {
+      for (int k = 0; k < 4; ++k) w.put(op + k, static_cast<int>((acc >> (8 * k)) & 0xFF));
+      op += 4;
+      acc >>= 32;
+      nb -= 32;
+    }
+  }
+  __device__ __forceinline__ void flush() {
+    for (; nb > 0; nb = max(nb - 8, 0)) {
+      w.put(op++, static_cast<int>(acc & 0xFF));
+      acc >>= 8;
+    }
+  }
+};
+
+template <int M>
+struct Sink {
+  BitOut bits;
+  int32_t* tab;  // hist: counts (288 litlen, then 30 dist); emit: the codes
+  int lane;
+  __device__ __forceinline__ void lit(int v) {
+    if (M == kHist) {
+      if (lane == 0) ++tab[v];
+    } else if (M == kEmit) {
+      bits.put(tab[v] & 0xFFFF, tab[v] >> 16);
+    } else {
+      bits.put(v < 144 ? rev_bits(0x30 + v, 8) : rev_bits(0x190 + v - 144, 9), v < 144 ? 8 : 9);
+    }
+  }
+  __device__ __forceinline__ void match(int ml, int dist) {
+    int li, e, ev, di, de, dv;
+    len_sym(ml, li, e, ev);
+    dist_sym(dist, di, de, dv);
+    if (M == kHist) {
+      if (lane == 0) {
+        ++tab[257 + li];
+        ++tab[288 + di];
+      }
+      return;
+    }
+    if (M == kEmit) {
+      bits.put(tab[257 + li] & 0xFFFF, tab[257 + li] >> 16);
+      bits.put(ev, e);
+      bits.put(tab[288 + di] & 0xFFFF, tab[288 + di] >> 16);
+    } else {
+      const int lsym = 257 + li;
+      const bool short_code = lsym < 280;
+      const int n = short_code ? 7 : 8;
+      bits.put(rev_bits(short_code ? lsym - 256 : 0xC0 + lsym - 280, n), n);
+      bits.put(ev, e);
+      bits.put(rev_bits(di, 5), 5);
+    }
+    bits.put(dv, de);
+  }
+  __device__ __forceinline__ void lits(const uint8_t* in, int a, int b) {
+    for (int i = a; i < b; ++i) lit(in[i]);
+  }
+};
+
+template <int M>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+deflate_encode_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__ sizes,
+                      const int32_t* __restrict__ cand, const int32_t* __restrict__ cand8,
+                      const int32_t* __restrict__ nxt, int batch, int cap,
+                      const int32_t* __restrict__ tab, const int32_t* __restrict__ hdr_words,
+                      const int32_t* __restrict__ hdr_bits, int32_t* __restrict__ llh,
+                      int32_t* __restrict__ dh, uint8_t* __restrict__ out, int out_cap,
+                      int32_t* __restrict__ out_sizes, int32_t* __restrict__ statuses) {
+  __shared__ int32_t s_tab[kWarpsPerBlock][kNTab];
+  const int wi = threadIdx.x / 32;
+  const int chunk = blockIdx.x * kWarpsPerBlock + wi;
+  if (chunk >= batch) return;  // the whole warp leaves together
+  const int lane = threadIdx.x & 31;
+  const size_t row = static_cast<size_t>(chunk) * cap;
+  const uint8_t* in = data + row;
+  const int size = min(max(sizes[chunk], 0), cap);
+  int32_t* t = s_tab[wi];
+  for (int i = lane; i < kNTab; i += 32)
+    t[i] = M == kEmit ? tab[static_cast<size_t>(chunk) * kNTab + i] : 0;
+  __syncwarp();
+
+  Sink<M> sink{{{M == kHist ? nullptr : out + static_cast<size_t>(chunk) * out_cap,
+                 M == kHist ? 0 : out_cap, lane},
+                0, 0, 0},
+               t, lane};
+  if (M == kFixed) {
+    sink.bits.put(0b011, 3);  // BFINAL = 1, BTYPE = 01
+  } else if (M == kEmit) {
+    const int hn = hdr_bits[chunk];
+    const int32_t* hw = hdr_words + static_cast<size_t>(chunk) * kHdrWords;
+    for (int i = 0; i < hn; i += 16) {
+      const int n = min(hn - i, 16);
+      sink.bits.put((static_cast<uint32_t>(hw[i >> 5]) >> (i & 31)) & ((1u << n) - 1u), n);
+    }
+  }
+
+  const int mflimit = size - kMinMatch + 1;
+  int anchor = 0, scan = 0;
+  if (nxt != nullptr) {
+    const int32_t* c4 = cand + row;
+    const int32_t* c8 = cand8 + row;
+    const int32_t* nx = nxt + row;
+    while (scan < mflimit) {
+      const int nm = nx[scan];
+      if (nm >= mflimit) break;  // no usable match left: the rest is literal
+      const int c4p = c4[nm], c8p = c8[nm];
+      const int p4 = c4p >= 0 ? c4p : c8p;
+      const int p8 = c8p >= 0 ? c8p : p4;
+      const int fcap = min(size - (nm + kMinMatch), kMaxMatch - kMinMatch);
+      const int l4 = tpucomp::warp_match_len(in, nm + kMinMatch, p4 + kMinMatch, fcap, lane);
+      const int l8 = p8 != p4
+                         ? tpucomp::warp_match_len(in, nm + kMinMatch, p8 + kMinMatch, fcap, lane)
+                         : l4;
+      const int src = l8 > l4 ? p8 : p4;
+      int nm2 = nm, src2 = src;
+      while (nm2 > anchor && src2 > 0 && in[nm2 - 1] == in[src2 - 1]) {
+        --nm2;
+        --src2;
+      }
+      const int ml = min(nm - nm2 + kMinMatch + max(l4, l8), kMaxMatch);
+      sink.lits(in, anchor, nm2);
+      sink.match(ml, nm - src);
+      anchor = scan = nm2 + ml;
+    }
+  }
+  sink.lits(in, anchor, size);
+
+  if (M == kHist) {
+    if (lane == 0) ++t[256];  // EOB
+    __syncwarp();
+    for (int i = lane; i < kNTab; i += 32) {
+      if (i < 288)
+        llh[static_cast<size_t>(chunk) * 288 + i] = t[i];
+      else
+        dh[static_cast<size_t>(chunk) * 30 + i - 288] = t[i];
+    }
+    return;
+  }
+  if (M == kEmit)
+    sink.bits.put(t[256] & 0xFFFF, t[256] >> 16);
+  else
+    sink.bits.put(0, 7);  // EOB: symbol 256, code 0
+  sink.bits.flush();
+
+  const tpucomp::OutRow& w = sink.bits.w;
+  int op = sink.bits.op;
+  const int n_blocks = max((size + 65534) / 65535, 1);
+  if (size + 5 * n_blocks < op) {  // stored blocks are shorter: rewrite
+    __syncwarp();                  // lane 0's stream bytes land before the copies
+    int src = 0;
+    op = 0;
+    do {
+      const int n = min(size - src, 65535);
+      const int nlen = 0xFFFF - n;
+      w.put(op, size - src == n ? 1 : 0);
+      w.put(op + 1, n & 0xFF);
+      w.put(op + 2, n >> 8);
+      w.put(op + 3, nlen & 0xFF);
+      w.put(op + 4, nlen >> 8);
+      w.copy(op + 5, in + src, n);
+      src += n;
+      op += 5 + n;
+    } while (src < size);
+  }
+  const bool too_big = op > out_cap;
+  const int osz = too_big ? 0 : op;
+  __syncwarp();  // order lane 0's stores before the zero fill
+  tpucomp::warp_fill(w.p, osz, out_cap, 0, lane);
+  if (lane == 0) {
+    out_sizes[chunk] = osz;
+    statuses[chunk] = too_big ? kOutputTooSmall : kSuccess;
+  }
+}
+
+template <int M>
+int launch(const uint8_t* data, const int32_t* sizes, const int32_t* cand,
+           const int32_t* cand8, const int32_t* nxt, int batch, int cap, const int32_t* tab,
+           const int32_t* hdr_words, const int32_t* hdr_bits, int32_t* llh, int32_t* dh,
+           uint8_t* out, int out_cap, int32_t* out_sizes, int32_t* statuses, void* stream) {
+  if (batch <= 0) return 0;
+  const int blocks = (batch + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  deflate_encode_kernel<M><<<blocks, kWarpsPerBlock * 32, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      data, sizes, cand, cand8, nxt, batch, cap, tab, hdr_words, hdr_bits, llh, dh, out,
+      out_cap, out_sizes, statuses);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Each launches on `stream` and returns cudaGetLastError() after the launch
+// (0 = ok).  cand, cand8 and nxt are all null for entropy-only coding.
+extern "C" int tpucomp_deflate_encode_fixed(const uint8_t* data, const int32_t* sizes,
+                                            const int32_t* cand, const int32_t* cand8,
+                                            const int32_t* nxt, int batch, int cap,
+                                            uint8_t* out, int out_cap, int32_t* out_sizes,
+                                            int32_t* statuses, void* stream) {
+  return launch<kFixed>(data, sizes, cand, cand8, nxt, batch, cap, nullptr, nullptr, nullptr,
+                        nullptr, nullptr, out, out_cap, out_sizes, statuses, stream);
+}
+
+extern "C" int tpucomp_deflate_encode_hist(const uint8_t* data, const int32_t* sizes,
+                                           const int32_t* cand, const int32_t* cand8,
+                                           const int32_t* nxt, int batch, int cap,
+                                           int32_t* llh, int32_t* dh, void* stream) {
+  return launch<kHist>(data, sizes, cand, cand8, nxt, batch, cap, nullptr, nullptr, nullptr,
+                       llh, dh, nullptr, 0, nullptr, nullptr, stream);
+}
+
+extern "C" int tpucomp_deflate_encode_emit(const uint8_t* data, const int32_t* sizes,
+                                           const int32_t* cand, const int32_t* cand8,
+                                           const int32_t* nxt, int batch, int cap,
+                                           const int32_t* tab, const int32_t* hdr_words,
+                                           const int32_t* hdr_bits, uint8_t* out, int out_cap,
+                                           int32_t* out_sizes, int32_t* statuses,
+                                           void* stream) {
+  return launch<kEmit>(data, sizes, cand, cand8, nxt, batch, cap, tab, hdr_words, hdr_bits,
+                       nullptr, nullptr, out, out_cap, out_sizes, statuses, stream);
+}
