@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of tpucomp_torch: batched LZ4, Snappy, Deflate (algos
-0, 1, 2) and gzip, and the Manager frame path with CRC32 checksums, on one
-NVIDIA GPU.
+0, 1, 2), gzip and Zstandard decompress, and the Manager frame path with
+CRC32 checksums, on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``:
 
@@ -11,25 +11,30 @@ Phases, each printing its own lines; any failure ends the run with a non-zero
 exit code and no result line:
 
 1. device: name, count, and ``nvidia-smi``'s name and power limit;
-2. build: the six CUDA libraries from ``tpucomp_torch/ops/cuda/csrc`` (one
+2. build: the seven CUDA libraries from ``tpucomp_torch/ops/cuda/csrc`` (one
    ``nvcc`` each, in parallel), with their ``-Xptxas -v`` register/shared-memory
    lines;
-3. kernel vs plain: each of the eight kernels on the card against its plain
+3. kernel vs plain: each of the ten kernels on the card against its plain
    version on a host copy of the same inputs (<= 8 chunks per corpus at the
    main path's 64 KiB shape, edge and hand-made streams, truncated and
    bit-flipped streams, an out_cap that is too small; for Deflate, zlib
    levels 0/1/6/9, libdeflate, a multi-block stream, gzip members through
    the decoder's ``starts``, and the encoder's three modes, with
-   ``dyn_tables`` on the card against the CPU); exact equality of bytes,
-   sizes and statuses;
+   ``dyn_tables`` on the card against the CPU; for Zstandard, both wrappers
+   (the two literal capacities) on libzstd frames at levels 1/3/19, edge,
+   hand-made and corrupt frames, and the 16 MiB wrapper on one 16 MiB chunk
+   of each corpus at the main path's shape); exact equality of bytes, sizes
+   and statuses;
 4. full width: two 64 MiB corpora from seed 42 (``mortgage_like``,
    ``mixed_corpus``) cut into 1024 chunks of 64 KiB, one batch each, through
    ``batched.compress`` / ``batched.decompress`` (backend "auto") for LZ4,
    Snappy and Deflate algos 0, 1, 2, and ``batched.decompress("gzip")``,
-   with the launch counts of that run, bit-exact round trips, the decoders
-   reading streams staged by liblz4 / libsnappy / zlib level 6 / gzip, liblz4,
-   libsnappy, zlib and libdeflate reading the port's frames, and CUDA-event
-   timings;
+   ``batched.decompress("zstd")`` on the same chunks staged by libzstd level
+   3 (row 18) and on each corpus as 4 chunks of 16 MiB (row 19), with the
+   launch counts of that run, bit-exact round trips, the decoders reading
+   streams staged by liblz4 / libsnappy / zlib level 6 / gzip / libzstd,
+   liblz4, libsnappy, zlib and libdeflate reading the port's frames, and
+   CUDA-event timings;
 5. manager: each corpus as one 64 MiB buffer through ``Manager(fmt, 65536,
    COMPUTE_AND_VERIFY)`` for LZ4, Snappy and Deflate (algo 1),
    ``create_manager`` and
@@ -39,8 +44,8 @@ exit code and no result line:
 6. the ``kernels`` JSON line, ``nvidia-smi``'s line, and last
    ``{"ok": true, "device": {...}}``.
 
-Exits non-zero without a CUDA device, and when the package beside this
-script is missing.
+Exits non-zero without a CUDA device, when the package beside this script is
+missing, and when libzstd does not load (it stages the Zstandard input).
 """
 from __future__ import annotations
 
@@ -59,6 +64,8 @@ CHUNK = 1 << 16           # DEFAULT_CHUNK_SIZE: the reference's chunk size
 CORPUS_BYTES = 64 << 20   # 1024 chunks per batch
 SEED = 42
 PHASE3_CHUNKS = 8
+BIG_CHUNK = 1 << 24       # the reference's largest zstd chunk (16 MiB)
+BIG_ITERS = 3             # timing iterations in the 16 MiB regime
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 WARMUP, ITERS = 2, 10
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
@@ -70,6 +77,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "deflate_encode_fixed": ("deflate_encode.cu", "tpucomp/ops/pallas/deflate_encode.py:47"),
     "deflate_encode_hist": ("deflate_encode.cu", "tpucomp/ops/pallas/deflate_encode.py:47"),
     "deflate_encode_emit": ("deflate_encode.cu", "tpucomp/ops/pallas/deflate_encode.py:47"),
+    "zstd_decode": ("zstd_decode.cu", "tpucomp/ops/pallas/zstd_decode.py:109"),
+    "zstd_decode_big": ("zstd_decode.cu", "tpucomp/ops/pallas/zstd_decode.py:109"),
 }
 ALGOS = (0, 1, 2)
 
@@ -86,9 +95,9 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, iters=ITERS) -> float:
+def time_ms(torch, fn, iters=ITERS, warmup=WARMUP) -> float:
     """Mean milliseconds of ``fn()`` on the card, after warm-up (CUDA events)."""
-    for _ in range(WARMUP):
+    for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -140,11 +149,13 @@ def main() -> int:
     from tpucomp_torch.formats import gzip as fgzip
     from tpucomp_torch.formats import lz4 as flz4
     from tpucomp_torch.formats import snappy as fsnappy
+    from tpucomp_torch.formats import zstd as fzstd
     from tpucomp_torch.interop import cpu as interop
     from tpucomp_torch.manager import ChecksumPolicy, Manager, create_manager
     from tpucomp_torch.ops import match
     from tpucomp_torch.ops.cuda import (_build, deflate_decode, deflate_encode, lz4_decode2,
-                                        lz4_encode2, snappy_decode, snappy_encode2)
+                                        lz4_encode2, snappy_decode, snappy_encode2,
+                                        zstd_decode)
     from tpucomp_torch.utils import synth
 
     counters = {"lz4_decode": lz4_decode2.decompress_batch,
@@ -154,7 +165,9 @@ def main() -> int:
                 "deflate_decode": deflate_decode.decompress_batch,
                 "deflate_encode_fixed": deflate_encode.fixed_kernel,
                 "deflate_encode_hist": deflate_encode.hist_kernel,
-                "deflate_encode_emit": deflate_encode.emit_kernel}
+                "deflate_encode_emit": deflate_encode.emit_kernel,
+                "zstd_decode": zstd_decode.decompress_batch,
+                "zstd_decode_big": zstd_decode.decompress_batch_big}
 
     def reset_counts() -> None:
         for fn in counters.values():
@@ -191,12 +204,15 @@ def main() -> int:
           f"{'loaded' if have['lz4'] else 'did not load: the port encoder stages decode inputs'}"
           f"; libsnappy "
           f"{'loaded' if have['snappy'] else 'did not load: the port encoder stages decode inputs'}"
-          f"; libdeflate {'loaded' if have['libdeflate'] else 'did not load'}")
+          f"; libdeflate {'loaded' if have['libdeflate'] else 'did not load'}"
+          f"; libzstd {'loaded' if have['zstd'] else 'did not load'}")
+    check(have["zstd"], "libzstd did not load: the Zstandard input cannot be staged")
     out_caps = {"lz4": flz4.max_compressed_chunk_size(CHUNK),
                 "snappy": fsnappy.max_compressed_chunk_size(CHUNK)}
     oracle = {"lz4": interop.lz4_compress, "snappy": interop.snappy_compress}
     dcap = fdeflate.max_compressed_chunk_size(CHUNK)
     gcap = fgzip.max_compressed_chunk_size(CHUNK)
+    zcap = fzstd.max_compressed_chunk_size(CHUNK)
     pool = ThreadPoolExecutor(8)   # zlib releases the GIL: staging and checks in parallel
 
     def stage(fmt: str, chunks: list[bytes]) -> list[bytes]:
@@ -326,6 +342,35 @@ def main() -> int:
             (gz_in.data, g_end, CHUNK, torch.where(g_ok, g_off, 0)),
             f"{len(gz)} gzip members at their starts")
 
+    # Zstandard decode, both wrappers: libzstd levels 1/3/19 on every head chunk,
+    # edge inputs, many literals (the two lit_caps part at out_cap 1000), the
+    # corrupt frames of tests/test_pallas_zstd.py:94-105 and fuzz; then the
+    # 16 MiB wrapper at the main path's shape, one 16 MiB chunk per corpus
+    zgood = interop.zstd_compress(synth.mixed_corpus(4000, seed=9).tobytes(), 3)
+    zstreams = [interop.zstd_compress(c, lv) for c in head["mortgage"] + head["mixed"]
+                for lv in (1, 3, 19)]
+    zstreams += [interop.zstd_compress(c, 3) for c in edge_raw]
+    zstreams += [interop.zstd_compress(bytes(rng.integers(0, 16, n, dtype=np.uint8)), 3)
+                 for n in (3000, 20000)]
+    zstreams += [zgood] + fuzz(zgood) + [
+        b"\x00" + zgood[1:], zgood[:4] + bytes([zgood[4] | 0x08]) + zgood[5:],
+        zgood[:4] + bytes([zgood[4] | 0x01, 7]) + zgood[5:],
+        bytes(np.random.default_rng(9).integers(0, 256, 96, dtype=np.uint8)), b""]
+    z_in = ChunkBatch.from_chunks(zstreams, fzstd.max_compressed_chunk_size(CHUNK), device="cpu")
+    for name, kernel_fn, plain_fn in (
+            ("zstd_decode", zstd_decode.decompress_batch, zstd_decode.decompress_batch_plain),
+            ("zstd_decode_big", zstd_decode.decompress_batch_big,
+             zstd_decode.decompress_batch_big_plain)):
+        for cap, label in ((CHUNK, "64 KiB out_cap"), (1000, "out_cap too small")):
+            compare(name, kernel_fn, plain_fn, (z_in.data, z_in.sizes, cap),
+                    f"{len(zstreams)} frames, {label}")
+    z_big = ChunkBatch.from_chunks([interop.zstd_compress(v[:BIG_CHUNK], 3)
+                                    for v in corpora.values()],
+                                   fzstd.max_compressed_chunk_size(BIG_CHUNK), device="cpu")
+    compare("zstd_decode_big", zstd_decode.decompress_batch_big,
+            zstd_decode.decompress_batch_big_plain, (z_big.data, z_big.sizes, BIG_CHUNK),
+            "the first 16 MiB chunk of each corpus (libzstd level 3), 16 MiB out_cap")
+
     # Deflate encode: the three modes at out_cap = bound and 1024, with and
     # without matches, and dyn_tables on the card against the CPU
     d_in = ChunkBatch.from_chunks(enc_rows + [head["mixed"][0]] * 6, CHUNK, device="cpu")
@@ -377,10 +422,17 @@ def main() -> int:
             list(pool.map(interop.deflate_compress, chunks)), dcap, device=dev)
         staged[name, "gzip"] = ChunkBatch.from_chunks(
             list(pool.map(interop.gzip_compress, chunks)), gcap, device=dev)
+        # libzstd level 3 (its default), per 64 KiB chunk and per 16 MiB chunk
+        staged[name, "zstd"] = ChunkBatch.from_chunks(
+            list(pool.map(interop.zstd_compress, chunks)), zcap, device=dev)
+        big_chunks = [raw[i:i + BIG_CHUNK] for i in range(0, len(raw), BIG_CHUNK)]
+        staged[name, "zstd_big"] = ChunkBatch.from_chunks(
+            list(pool.map(interop.zstd_compress, big_chunks)),
+            fzstd.max_compressed_chunk_size(BIG_CHUNK), device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    results, dresults, dstaged = {}, {}, {}
+    results, dresults, dstaged, zresults = {}, {}, {}, {}
     for name, cb in batches.items():          # the main path, once
         for fmt in out_caps:
             comp, cst = batched.compress(fmt, cb)
@@ -393,6 +445,8 @@ def main() -> int:
             dresults[name, algo] = (comp, cst, dec, dst)
         dstaged[name] = (batched.decompress("deflate", staged[name, "deflate"], CHUNK)
                          + batched.decompress("gzip", staged[name, "gzip"], CHUNK))
+        zresults[name] = (batched.decompress("zstd", staged[name, "zstd"], CHUNK)
+                          + batched.decompress("zstd", staged[name, "zstd_big"], BIG_CHUNK))
     torch.cuda.synchronize()
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -521,8 +575,32 @@ def main() -> int:
                    "staged_ratio": raw_bytes / int(sb.total_bytes), "decompress_ms": t,
                    "decompress_GBps": raw_bytes / t / 1e6}
             print(f"[full] {json.dumps(row)}")
+    for name, (zdec, zst, bdec, bst) in zresults.items():
+        cb = batches[name]
+        raw_bytes = int(cb.total_bytes)
+        bcb = ChunkBatch.from_bytes(corpora[name], BIG_CHUNK, device=dev)
+        for label, d, st, want in (("64 KiB", zdec, zst, cb), ("16 MiB", bdec, bst, bcb)):
+            check(bool((st == Status.SUCCESS).all()) and torch.equal(d.sizes, want.sizes)
+                  and torch.equal(d.data, want.data),
+                  f"{name} zstd {label} chunks: decode of the libzstd-staged frames is not "
+                  f"bit-exact")
+        zd, bd = staged[name, "zstd"], staged[name, "zstd_big"]
+        t_dec = time_ms(torch, lambda: zstd_decode.decompress_batch(zd.data, zd.sizes, CHUNK))
+        t_big = time_ms(torch, lambda: zstd_decode.decompress_batch_big(bd.data, bd.sizes,
+                                                                        BIG_CHUNK),
+                        iters=BIG_ITERS, warmup=1)
+        for kname, sb, chunk, t in (("zstd_decode", zd, CHUNK, t_dec),
+                                    ("zstd_decode_big", bd, BIG_CHUNK, t_big)):
+            B = sb.num_chunks
+            kernel_ms[kname] += t
+            bound[kname] += bytes_bound_ms(int(sb.total_bytes) + 4 * B, B * chunk + 8 * B)
+            row = {"corpus": name, "format": "zstd", "kernel": kname, "chunk_bytes": chunk,
+                   "chunks": B, "staged_by": "libzstd level 3",
+                   "staged_ratio": raw_bytes / int(sb.total_bytes), "decompress_ms": t,
+                   "decompress_GBps": raw_bytes / t / 1e6}
+            print(f"[full] {json.dumps(row)}")
     print(f"[full] peak device memory of the main-path run: {peak} bytes")
-    del results, staged, dresults, dstaged
+    del results, staged, dresults, dstaged, zresults
 
     # --------------------------------------------------------------- 5 manager
     verify = ChecksumPolicy.COMPUTE_AND_VERIFY
@@ -542,8 +620,9 @@ def main() -> int:
     torch.cuda.synchronize()
     mgr_launches = read_counts()
     print(f"[manager] launches in the Manager-path run: {mgr_launches}")
-    # algo 1 runs the hist and emit walks, not the fixed one
-    check(all(v > 0 for k, v in mgr_launches.items() if k != "deflate_encode_fixed"),
+    # algo 1 runs the hist and emit walks, not the fixed one; no zstd Manager yet
+    check(all(v > 0 for k, v in mgr_launches.items()
+              if k not in ("deflate_encode_fixed", "zstd_decode", "zstd_decode_big")),
           f"a kernel was not launched on the Manager path: {mgr_launches}")
     for (name, fmt), (frame, mgr, cfg, out) in frames.items():
         buf = bufs[name]
@@ -596,9 +675,10 @@ def main() -> int:
                         "plain_ms": plain_ms[name], "bound_ms": bound[name],
                         "bound_by": "bytes", "library_ms": None})
     print("[kernels] ms, bound_ms: the two full-width corpora summed (deflate_decode on "
-          "the zlib-staged streams, deflate_encode_hist/emit in algo 1); launches: the "
-          "batched main-path run; plain_ms: the plain version on the phase-3 inputs "
-          "(host); no PyTorch call computes LZ4, Snappy or Deflate")
+          "the zlib-staged streams, deflate_encode_hist/emit in algo 1, zstd_decode on "
+          "1024 x 64 KiB and zstd_decode_big on 4 x 16 MiB libzstd-staged frames); "
+          "launches: the batched main-path run; plain_ms: the plain version on the phase-3 "
+          "inputs (host); no PyTorch call computes LZ4, Snappy, Deflate or Zstandard")
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

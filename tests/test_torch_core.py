@@ -186,12 +186,14 @@ def test_unported_paths_raise_not_implemented():
         batched.decompress("snappy", cb, 16, backend="xla")
     with pytest.raises(ValueError, match="unknown backend"):
         batched.decompress("lz4", cb, 16, backend="pallas")
-    with pytest.raises(ValueError, match="unknown format"):
+    with pytest.raises(NotImplementedError, match="ROADMAP B.7"):
         batched.compress("zstd", cb)
+    with pytest.raises(ValueError, match="unknown format"):
+        batched.compress("brotli", cb)
 
 
 def test_api_parity_shims():
-    assert batched.formats() == ["deflate", "gzip", "lz4", "snappy"]
+    assert batched.formats() == ["deflate", "gzip", "lz4", "snappy", "zstd"]
     assert batched.compress_get_temp_size("lz4", 10, 65536) == 0
     assert batched.decompress_get_temp_size("lz4", 10, 65536) == 0
     assert batched.compress_get_temp_size_ex("lz4", 10, 65536, 1 << 20) == 0
@@ -246,7 +248,8 @@ def test_import_leaves_jax_and_reference_out():
             "tpucomp_torch.formats.snappy, tpucomp_torch.formats.crc32, "
             "tpucomp_torch.formats.deflate, tpucomp_torch.formats.gzip, "
             "tpucomp_torch.ops.cuda.huffman, tpucomp_torch.ops.cuda.deflate_decode, "
-            "tpucomp_torch.ops.cuda.deflate_encode, "
+            "tpucomp_torch.ops.cuda.deflate_encode, tpucomp_torch.formats.zstd, "
+            "tpucomp_torch.ops.cuda.zstd_decode, "
             "tpucomp_torch.manager, tpucomp_torch.utils.synth, tpucomp_torch.interop.cpu\n"
             "tpucomp_torch.batched.formats()\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tpucomp')]\n"

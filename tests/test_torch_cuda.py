@@ -25,7 +25,7 @@ from tpucomp_torch.interop import cpu as interop
 from tpucomp_torch.manager import ChecksumPolicy, Manager, create_manager
 from tpucomp_torch.ops import match
 from tpucomp_torch.ops.cuda import (deflate_decode, deflate_encode, lz4_decode2, lz4_encode2,
-                                    snappy_decode, snappy_encode2)
+                                    snappy_decode, snappy_encode2, zstd_decode)
 from tpucomp_torch.utils import synth
 
 pytestmark = pytest.mark.cuda
@@ -262,3 +262,65 @@ def test_gzip_kernel_path_equals_plain(card):
     want, wst = batched.decompress("gzip", cb, 65536)
     assert _equal((got.data, got.sizes, gst), (want.data, want.sizes, wst))
     assert wst.tolist() == [0, 0, 0, 12, 12]
+
+
+def _zstd_streams(cap: int):
+    """libzstd frames at levels -5/1/3/19 (one block each at 64 KiB; several
+    at 1 MiB), edge inputs, a frame of many literals, corrupt frames."""
+    rng = np.random.default_rng(cap + 5)
+    raws = [synth.mixed_corpus(cap + 64, seed=3)[:cap].tobytes(),
+            synth.mortgage_like(cap, seed=4).tobytes(), synth.text_like(cap, seed=5).tobytes(),
+            b"", b"x", b"\x00" * cap, b"ab" * (cap // 2),
+            bytes(rng.integers(0, 256, cap, dtype=np.uint8)),
+            bytes(rng.integers(0, 16, cap, dtype=np.uint8))]
+    comp = [interop.zstd_compress(r, level) for r in raws for level in (-5, 1, 3, 19)]
+    good = comp[2]
+    comp += [good[:k] for k in (1, 4, 5, 12, len(good) // 2, len(good) - 1)]
+    for _ in range(8):
+        b = bytearray(good)
+        b[rng.integers(0, len(good))] ^= 1 << rng.integers(0, 8)
+        comp.append(bytes(b))
+    return comp + [b"\x00" + good[1:], good[:4] + bytes([good[4] | 0x08]) + good[5:],
+                   good[:4] + bytes([good[4] | 0x01, 0x07]) + good[5:],
+                   bytes(rng.integers(0, 256, 96, dtype=np.uint8))]
+
+
+@pytest.mark.parametrize("out_cap", ["fits", 1000])
+@pytest.mark.parametrize("big", [False, True])
+@pytest.mark.parametrize("cap", [65536, 1 << 20])
+def test_zstd_decode_kernel_equals_plain(card, cap, big, out_cap):
+    """Both wrappers (the two lit_caps) against their plain versions; at
+    out_cap 1000 frames with many literals split into statuses 12 and 15."""
+    if not interop.available()["zstd"]:
+        pytest.skip("libzstd is not installed")
+    streams = _zstd_streams(cap) if cap == 65536 else [
+        interop.zstd_compress(synth.mixed_corpus(cap, seed=6).tobytes()[:cap], 3),
+        interop.zstd_compress(synth.mortgage_like(cap, seed=7).tobytes(), 19)]
+    cb = ChunkBatch.from_chunks(streams, device="cpu")
+    oc = cap if out_cap == "fits" else out_cap
+    kernel, plain = ((zstd_decode.decompress_batch_big, zstd_decode.decompress_batch_big_plain)
+                     if big else (zstd_decode.decompress_batch, zstd_decode.decompress_batch_plain))
+    before = kernel.launches
+    got = kernel(cb.data.to(card), cb.sizes.to(card), oc)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = plain(cb.data, cb.sizes, oc)
+    assert _equal(got, want)
+    if out_cap == "fits":
+        assert (want[2][:len(streams) if cap > 65536 else 36] == Status.SUCCESS).all()
+
+
+def test_zstd_batched_dispatch_on_card(card):
+    """batched.decompress("zstd") takes row 18 for 64 KiB chunks and row 19
+    for 2 MiB chunks (the reference's gate), bit-exact on libzstd frames."""
+    if not interop.available()["zstd"]:
+        pytest.skip("libzstd is not installed")
+    for chunk, kernel in ((65536, zstd_decode.decompress_batch),
+                          (2 << 20, zstd_decode.decompress_batch_big)):
+        buf = synth.mixed_corpus(4 << 20, seed=12).tobytes()
+        raws = [buf[i:i + chunk] for i in range(0, len(buf), chunk)]
+        cb = ChunkBatch.from_chunks([interop.zstd_compress(r, 3) for r in raws])  # the card
+        before = kernel.launches
+        dec, st = batched.decompress("zstd", cb, chunk)
+        assert kernel.launches == before + 1
+        assert (st == Status.SUCCESS).all() and dec.to_bytes() == buf

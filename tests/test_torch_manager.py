@@ -249,7 +249,7 @@ def test_not_a_frame():
 
 
 def test_unported_formats_and_default_device(monkeypatch):
-    with pytest.raises(ValueError, match="unknown format"):
+    with pytest.raises(NotImplementedError, match="ROADMAP B.7"):
         Manager("zstd", device="cpu")
     with pytest.raises(ValueError, match="unknown format"):
         Manager("brotli", device="cpu")

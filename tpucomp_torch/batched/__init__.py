@@ -42,13 +42,14 @@ class CodecSpec:
     """One registered format (analog of a ``nvcompBatched<Fmt>`` function family)."""
 
     name: str
-    compress_batch: Callable  # (data, sizes, opts, out_cap) -> (out, out_sizes, statuses)
+    compress_batch: Callable | None  # (data, sizes, opts, out_cap) -> (out, out_sizes, statuses)
     decompress_batch: Callable  # (comp, comp_sizes, out_cap) -> (out, out_sizes, statuses)
     max_compressed_chunk_size: Callable[[int, Any], int]
     default_opts: Any
     get_decompress_size: Callable | None = None  # (comp, comp_sizes) -> sizes
     elem_size: Callable[[Any], int] | None = None  # typed codecs: opts -> element bytes
     decompression_only: bool = False  # e.g. gzip (README.md:16)
+    compress_todo: str = ""  # why compress is not ported yet (it then raises NotImplementedError)
 
 
 _REGISTRY: dict[str, CodecSpec] = {}
@@ -195,6 +196,8 @@ def compress(fmt: str, batch: ChunkBatch, opts: Any = None,
     spec = _get(fmt)
     if spec.decompression_only:
         raise ValueError(f"{fmt} provides decompression only")
+    if spec.compress_todo:
+        raise NotImplementedError(f"{fmt} compress: {spec.compress_todo}")
     opts = opts if opts is not None else spec.default_opts
     if out_cap is None:
         out_cap = spec.max_compressed_chunk_size(batch.max_chunk_bytes, opts)

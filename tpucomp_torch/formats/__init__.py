@@ -1,8 +1,9 @@
 """Format codecs registered with :mod:`tpucomp_torch.batched`.
 
-Port of :mod:`tpucomp.formats`.  LZ4, Snappy, Deflate and gzip (decompression
-only) are ported so far (and the CRC32 of :mod:`.crc32`, which registers no
-codec); the other formats follow in the order of ``ROADMAP.md``.
+Port of :mod:`tpucomp.formats`.  LZ4, Snappy, Deflate, gzip (decompression
+only) and Zstandard decompression are ported so far (and the CRC32 of
+:mod:`.crc32`, which registers no codec); the other formats follow in the
+order of ``ROADMAP.md``.
 """
 from __future__ import annotations
 
@@ -18,9 +19,10 @@ def register_all() -> None:
 
     from tpucomp_torch import batched
     from tpucomp_torch.batched import CodecSpec
-    from tpucomp_torch.formats import deflate, gzip, lz4, snappy
+    from tpucomp_torch.formats import deflate, gzip, lz4, snappy, zstd
     from tpucomp_torch.ops.cuda import (deflate_decode, deflate_encode, lz4_decode2,
-                                        lz4_encode2, snappy_decode, snappy_encode2)
+                                        lz4_encode2, snappy_decode, snappy_encode2,
+                                        zstd_decode)
 
     batched.register(CodecSpec(
         name="lz4",
@@ -60,4 +62,15 @@ def register_all() -> None:
         default_opts=None,
         get_decompress_size=gzip.get_decompress_size,
         decompression_only=True,
+    ))
+    batched.register(CodecSpec(
+        name="zstd",
+        # zstd is not a decompress-only format in the reference: compress
+        # raises NotImplementedError until its encoder is ported
+        compress_batch=None,
+        compress_todo=zstd.COMPRESS_TODO,
+        decompress_batch=lambda c, s, oc: zstd_decode.dispatch(c, s, oc, plain=True),
+        max_compressed_chunk_size=zstd.max_compressed_chunk_size,
+        default_opts=zstd.DEFAULT_OPTS,
+        get_decompress_size=zstd.get_decompress_size,
     ))

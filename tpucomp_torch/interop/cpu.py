@@ -1,7 +1,8 @@
-"""CPU oracles: liblz4, libsnappy and libdeflate via ctypes, zlib and gzip.
+"""CPU oracles: liblz4, libsnappy, libdeflate and libzstd via ctypes, zlib and gzip.
 
-Port of the LZ4, Snappy, Deflate and gzip parts of :mod:`tpucomp.interop.cpu`
-(``:21-201``): the correctness oracles of those paths.  CPU-compress ->
+Port of :mod:`tpucomp.interop.cpu` (``:21-229``): the correctness oracles of
+the ported paths.  The reference's zstd oracle is python-zstandard; the port
+binds libzstd itself, which the card's machine has without that module.  CPU-compress ->
 GPU-decompress and GPU-compress -> CPU-decompress must both round-trip
 bit-exactly, which proves the kernels implement the public format rather than
 merely being self-inverse.  zlib is Python's own and always present; the
@@ -191,10 +192,56 @@ def libdeflate_decompress(data: bytes, uncompressed_size: int) -> bytes:
     return out.raw[:actual.value]
 
 
+@functools.lru_cache(maxsize=1)
+def _zstd() -> ctypes.CDLL:
+    lib = _load(["libzstd.so.1", "libzstd.so"])
+    size_t = ctypes.c_size_t
+    lib.ZSTD_compressBound.restype = size_t
+    lib.ZSTD_compressBound.argtypes = [size_t]
+    lib.ZSTD_compress.restype = size_t
+    lib.ZSTD_compress.argtypes = [ctypes.c_char_p, size_t, ctypes.c_char_p, size_t, ctypes.c_int]
+    lib.ZSTD_decompress.restype = size_t
+    lib.ZSTD_decompress.argtypes = [ctypes.c_char_p, size_t, ctypes.c_char_p, size_t]
+    lib.ZSTD_getFrameContentSize.restype = ctypes.c_ulonglong
+    lib.ZSTD_getFrameContentSize.argtypes = [ctypes.c_char_p, size_t]
+    lib.ZSTD_isError.restype = ctypes.c_uint
+    lib.ZSTD_isError.argtypes = [size_t]
+    return lib
+
+
+def zstd_compress(data: bytes, level: int = 3) -> bytes:
+    """One Zstandard frame via libzstd's ``ZSTD_compress`` (content size in
+    the header, no checksum)."""
+    lib = _zstd()
+    bound = lib.ZSTD_compressBound(len(data))
+    out = ctypes.create_string_buffer(max(bound, 1))
+    n = lib.ZSTD_compress(out, bound, data, len(data), level)
+    if lib.ZSTD_isError(n):
+        raise RuntimeError(f"ZSTD_compress failed (rc={n})")
+    return out.raw[:n]
+
+
+def zstd_decompress(data: bytes, uncompressed_size: int | None = None) -> bytes:
+    """One frame via ``ZSTD_decompress``; without ``uncompressed_size`` the
+    frame must carry its content size."""
+    lib = _zstd()
+    if uncompressed_size is None:
+        n = lib.ZSTD_getFrameContentSize(data, len(data))
+        if n >= (1 << 64) - 2:   # ZSTD_CONTENTSIZE_UNKNOWN / _ERROR
+            raise RuntimeError("the zstd frame carries no content size")
+        uncompressed_size = n
+    out = ctypes.create_string_buffer(max(uncompressed_size, 1))
+    n = lib.ZSTD_decompress(out, uncompressed_size, data, len(data))
+    if lib.ZSTD_isError(n):
+        raise RuntimeError(f"ZSTD_decompress failed (rc={n})")
+    return out.raw[:n]
+
+
 def available() -> dict[str, bool]:
     """Report which interop oracles can load on this system."""
     out = {"zlib": True, "gzip": True}
-    for name, loader in (("lz4", _lz4), ("snappy", _snappy), ("libdeflate", _libdeflate)):
+    for name, loader in (("lz4", _lz4), ("snappy", _snappy), ("libdeflate", _libdeflate),
+                         ("zstd", _zstd)):
         try:
             loader()
             out[name] = True

@@ -17,6 +17,8 @@ the same module, sits its plain version with the same signature.
 - :mod:`.deflate_encode` — the Deflate walk over :func:`tpucomp_torch.ops
   .match.candidates2` in modes fixed, hist and emit
   (``csrc/deflate_encode.cu``), with the dynamic tables in torch ops.
+- :mod:`.zstd_decode` — the RFC 8878 frame decoder (``csrc/zstd_decode.cu``),
+  one kernel behind the reference's two wrappers, chosen by its dispatch gate.
 - ``csrc/bytecopy.cuh`` — the warp byte-copy helpers they share.
 
 ``KERNEL_DECODERS`` / ``KERNEL_ENCODERS`` map a format name to the kernel
@@ -62,6 +64,13 @@ def _gzip_decompress_batch(comp, comp_sizes, out_cap):
                                       out_cap)
 
 
+def _zstd_decompress_batch(comp, comp_sizes, out_cap):
+    """Row 18 or row 19 by the reference's gate (``ops/pallas/__init__.py:100-123``;
+    its interpret-mode XLA fallback is a CPU affair with no counterpart here)."""
+    from tpucomp_torch.ops.cuda import zstd_decode
+    return zstd_decode.dispatch(comp, comp_sizes, out_cap)
+
+
 def _deflate_compress_batch(data, sizes, opts, out_cap):
     from tpucomp_torch.ops.cuda import deflate_encode
     return deflate_encode.compress_algo(data, sizes, opts, out_cap)
@@ -72,6 +81,7 @@ KERNEL_DECODERS = {
     "snappy": _snappy_decompress_batch,
     "deflate": _deflate_decompress_batch,
     "gzip": _gzip_decompress_batch,
+    "zstd": _zstd_decompress_batch,
 }
 
 KERNEL_ENCODERS = {
