@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """On-card smoke run of tpucomp_torch: batched LZ4, Snappy, Deflate (algos
-0, 1, 2), gzip and Zstandard decompress, and the Manager frame path with
+0, 1, 2), gzip decompress and Zstandard, and the Manager frame path with
 CRC32 checksums, on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``:
@@ -11,10 +11,10 @@ Phases, each printing its own lines; any failure ends the run with a non-zero
 exit code and no result line:
 
 1. device: name, count, and ``nvidia-smi``'s name and power limit;
-2. build: the seven CUDA libraries from ``tpucomp_torch/ops/cuda/csrc`` (one
+2. build: the eight CUDA libraries from ``tpucomp_torch/ops/cuda/csrc`` (one
    ``nvcc`` each, in parallel), with their ``-Xptxas -v`` register/shared-memory
    lines;
-3. kernel vs plain: each of the ten kernels on the card against its plain
+3. kernel vs plain: each of the twelve kernels on the card against its plain
    version on a host copy of the same inputs (<= 8 chunks per corpus at the
    main path's 64 KiB shape, edge and hand-made streams, truncated and
    bit-flipped streams, an out_cap that is too small; for Deflate, zlib
@@ -23,20 +23,24 @@ exit code and no result line:
    ``dyn_tables`` on the card against the CPU; for Zstandard, both wrappers
    (the two literal capacities) on libzstd frames at levels 1/3/19, edge,
    hand-made and corrupt frames, and the 16 MiB wrapper on one 16 MiB chunk
-   of each corpus at the main path's shape); exact equality of bytes, sizes
-   and statuses;
+   of each corpus at the main path's shape; the encoder's hist and full walks
+   on the head chunks, the edge inputs of tests/test_pallas_zstd.py and its
+   64 KiB sequence-heavy chunk, in exact entropy at two out_caps and in the
+   speed rung, with its tables on the card against the CPU); exact equality
+   of bytes, sizes, statuses and table words;
 4. full width: two 64 MiB corpora from seed 42 (``mortgage_like``,
    ``mixed_corpus``) cut into 1024 chunks of 64 KiB, one batch each, through
    ``batched.compress`` / ``batched.decompress`` (backend "auto") for LZ4,
    Snappy and Deflate algos 0, 1, 2, and ``batched.decompress("gzip")``,
    ``batched.decompress("zstd")`` on the same chunks staged by libzstd level
-   3 (row 18) and on each corpus as 4 chunks of 16 MiB (row 19), with the
-   launch counts of that run, bit-exact round trips, the decoders reading
-   streams staged by liblz4 / libsnappy / zlib level 6 / gzip / libzstd,
-   liblz4, libsnappy, zlib and libdeflate reading the port's frames, and
-   CUDA-event timings;
+   3 (row 18) and on each corpus as 4 chunks of 16 MiB (row 19), and
+   ``batched.compress("zstd")`` (rows 20-21, exact entropy) with its speed
+   rung (``exact_entropy=False``), with the launch counts of that run,
+   bit-exact round trips, the decoders reading streams staged by liblz4 /
+   libsnappy / zlib level 6 / gzip / libzstd, liblz4, libsnappy, zlib,
+   libdeflate and libzstd reading the port's frames, and CUDA-event timings;
 5. manager: each corpus as one 64 MiB buffer through ``Manager(fmt, 65536,
-   COMPUTE_AND_VERIFY)`` for LZ4, Snappy and Deflate (algo 1),
+   COMPUTE_AND_VERIFY)`` for LZ4, Snappy, Deflate (algo 1) and Zstandard,
    ``create_manager`` and
    ``decompress`` (bit-exact, ``SUCCESS``), a flipped payload byte
    (``ERROR_BAD_CHECKSUM``), the frame without its CRC tables through a
@@ -79,6 +83,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "deflate_encode_emit": ("deflate_encode.cu", "tpucomp/ops/pallas/deflate_encode.py:47"),
     "zstd_decode": ("zstd_decode.cu", "tpucomp/ops/pallas/zstd_decode.py:109"),
     "zstd_decode_big": ("zstd_decode.cu", "tpucomp/ops/pallas/zstd_decode.py:109"),
+    "zstd_encode_hist": ("zstd_encode.cu", "tpucomp/ops/pallas/zstd_encode.py:237"),
+    "zstd_encode": ("zstd_encode.cu", "tpucomp/ops/pallas/zstd_encode.py:237"),
 }
 ALGOS = (0, 1, 2)
 
@@ -155,7 +161,7 @@ def main() -> int:
     from tpucomp_torch.ops import match
     from tpucomp_torch.ops.cuda import (_build, deflate_decode, deflate_encode, lz4_decode2,
                                         lz4_encode2, snappy_decode, snappy_encode2,
-                                        zstd_decode)
+                                        zstd_decode, zstd_encode)
     from tpucomp_torch.utils import synth
 
     counters = {"lz4_decode": lz4_decode2.decompress_batch,
@@ -167,7 +173,9 @@ def main() -> int:
                 "deflate_encode_hist": deflate_encode.hist_kernel,
                 "deflate_encode_emit": deflate_encode.emit_kernel,
                 "zstd_decode": zstd_decode.decompress_batch,
-                "zstd_decode_big": zstd_decode.decompress_batch_big}
+                "zstd_decode_big": zstd_decode.decompress_batch_big,
+                "zstd_encode_hist": zstd_encode.hist_kernel,
+                "zstd_encode": zstd_encode.full_kernel}
 
     def reset_counts() -> None:
         for fn in counters.values():
@@ -409,6 +417,53 @@ def main() -> int:
                     lambda d, s, *r: deflate_encode.emit_plain(d, s, cands_of(r[:-4]), *r[-4:]),
                     a_cpu + tables + (cap,), f"{d_in.num_chunks} chunks, {how}, {label}")
 
+    # Zstandard encode: the hist and full walks on the head chunks, the edge
+    # inputs of tests/test_pallas_zstd.py:25-36,198-226 and its 64 KiB
+    # sequence-heavy chunk, in exact entropy at out_cap = bound and 2048 and in
+    # the speed rung; candidates2 (64 KiB window) and the tables on the card
+    # against the CPU
+    zrng = np.random.default_rng(5)
+    seq_heavy = b"".join(b"abcd" + zrng.integers(0, 256, 2, dtype=np.uint8).tobytes()
+                         for _ in range(12000))[:CHUNK]
+    zbase = (np.arange(16, dtype=np.uint8) * 7 + 3).tobytes()
+    zedge = [b"", b"x", bytes(zrng.integers(0, 256, 700, dtype=np.uint8)), b"\x00" * 3000,
+             b"ab" * 1200, b"".join(zbase + bytes([i & 0xFF]) for i in range(1500)), seq_heavy]
+    ze_in = ChunkBatch.from_chunks(enc_rows + zedge, CHUNK, device="cpu")
+    zwin = zstd_encode.MAX_CAP
+    zc_cpu = match.candidates2(ze_in.data, ze_in.sizes, window=zwin)
+    zc_gpu = match.candidates2(ze_in.data.to(dev), ze_in.sizes.to(dev), window=zwin)
+    check(all(torch.equal(g.cpu(), c) for g, c in zip(zc_gpu, zc_cpu)),
+          "candidates2 (64 KiB window) on the card differs from the CPU")
+    zargs = (ze_in.data, ze_in.sizes, *zc_cpu)
+    zfreq, zsch = compare("zstd_encode_hist",
+                          lambda d, s, a, b, n: zstd_encode.hist_kernel(d, s, (a, b, n)),
+                          lambda d, s, a, b, n: zstd_encode.hist_plain(d, s, (a, b, n)),
+                          zargs, f"{ze_in.num_chunks} chunks, exact entropy")
+    whole = zstd_encode.whole_chunk_hist(ze_in.data, ze_in.sizes)
+    seq_tabs = zstd_encode.seq_tables(zsch)
+    for what, on_card, on_cpu in (
+            ("seq_tables", zstd_encode.seq_tables(zsch.to(dev)), seq_tabs),
+            ("huf_meta", zstd_encode.huf_meta(zfreq.to(dev)), zstd_encode.huf_meta(zfreq)),
+            ("whole_chunk_hist", (zstd_encode.whole_chunk_hist(ze_in.data.to(dev),
+                                                               ze_in.sizes.to(dev)),),
+             (whole,))):
+        check(all(torch.equal(g.cpu(), c) for g, c in zip(on_card, on_cpu)),
+              f"zstd {what} on the card differs from the CPU")
+    scm = seq_tabs[0][:, zstd_encode.O2_META + 3]
+    print(f"[kernel=plain] zstd seq_tables, huf_meta and whole_chunk_hist on the card == on "
+          f"the CPU; custom FSE tables in {int((scm != 0).sum())} of {ze_in.num_chunks} chunks")
+    rungs = {"exact entropy": (zfreq, seq_tabs),
+             "speed rung": (whole, zstd_encode.speed_tables(ze_in.num_chunks, "cpu"))}
+    for rung, (freq, (fse_tab, nc)) in rungs.items():
+        meta, tree = zstd_encode.huf_meta(freq)
+        caps = (zcap, 2048) if rung == "exact entropy" else (zcap,)
+        for cap in caps:
+            compare("zstd_encode",
+                    lambda d, s, a, b, n, *r: zstd_encode.full_kernel(d, s, (a, b, n), *r),
+                    lambda d, s, a, b, n, *r: zstd_encode.full_plain(d, s, (a, b, n), *r),
+                    zargs + (meta, tree, fse_tab, nc, cap),
+                    f"{ze_in.num_chunks} chunks, {rung}, out_cap {cap}")
+
     # ------------------------------------------------------------ 4 full width
     batches, staged = {}, {}
     for name, raw in corpora.items():
@@ -432,7 +487,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    results, dresults, dstaged, zresults = {}, {}, {}, {}
+    results, dresults, dstaged, zresults, zenc = {}, {}, {}, {}, {}
     for name, cb in batches.items():          # the main path, once
         for fmt in out_caps:
             comp, cst = batched.compress(fmt, cb)
@@ -447,6 +502,12 @@ def main() -> int:
                          + batched.decompress("gzip", staged[name, "gzip"], CHUNK))
         zresults[name] = (batched.decompress("zstd", staged[name, "zstd"], CHUNK)
                           + batched.decompress("zstd", staged[name, "zstd_big"], BIG_CHUNK))
+        zcomp, zcst = batched.compress("zstd", cb)
+        sout, ssz, sst = zstd_encode.compress_batch(cb.data, cb.sizes, zcap,
+                                                    exact_entropy=False)
+        zspeed = ChunkBatch(data=sout, sizes=ssz)
+        zenc[name] = {"exact entropy": (zcomp, zcst) + batched.decompress("zstd", zcomp, CHUNK),
+                      "speed rung": (zspeed, sst) + batched.decompress("zstd", zspeed, CHUNK)}
     torch.cuda.synchronize()
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -599,14 +660,68 @@ def main() -> int:
                    "staged_ratio": raw_bytes / int(sb.total_bytes), "decompress_ms": t,
                    "decompress_GBps": raw_bytes / t / 1e6}
             print(f"[full] {json.dumps(row)}")
+
+    def libzstd_reads(f_r) -> bool:
+        return interop.zstd_decompress(f_r[0], len(f_r[1])) == f_r[1]
+
+    for name, rungs in zenc.items():
+        cb = batches[name]
+        B, sizes, raw_bytes = cb.num_chunks, cb.sizes, int(cb.total_bytes)
+        for rung, (comp, cst, dec, dst) in rungs.items():
+            check(bool((cst == Status.SUCCESS).all()) and bool((dst == Status.SUCCESS).all()),
+                  f"{name} zstd compress ({rung}): statuses")
+            check(torch.equal(dec.sizes, cb.sizes) and torch.equal(dec.data, cb.data),
+                  f"{name} zstd compress ({rung}): round trip through row 18 is not bit-exact")
+            check(all(pool.map(libzstd_reads, zip(comp.chunk_list(), cb.chunk_list()))),
+                  f"{name} zstd compress ({rung}): libzstd does not read the port's frames back")
+        cands = match.candidates2(cb.data, sizes, window=zwin)
+        freq, sch = zstd_encode.hist_kernel(cb.data, sizes, cands)
+
+        def tables():
+            return zstd_encode.seq_tables(sch) + zstd_encode.huf_meta(freq)
+
+        fse_tab, nc, meta, tree = tables()
+        t_full = time_ms(torch, lambda: zstd_encode.full_kernel(cb.data, sizes, cands, meta, tree,
+                                                                fse_tab, nc, zcap))
+        t_hist = time_ms(torch, lambda: zstd_encode.hist_kernel(cb.data, sizes, cands))
+        nseq = int(sch[:, :36].sum())
+        kernel_ms["zstd_encode_hist"] += t_hist
+        kernel_ms["zstd_encode"] += t_full
+        bound["zstd_encode_hist"] += bytes_bound_ms(raw_bytes + 4 * B, B * 377 * 4)
+        # full reads the data, sizes, Huffman meta and tree rows, the ncount
+        # bytes and, of fse_tab, the words at the sequences' states (3 a
+        # sequence) and each chunk's 8 first-slot and meta words
+        bound["zstd_encode"] += bytes_bound_ms(
+            raw_bytes + 4 * B + B * (258 * 4 + 176) + int(fse_tab[:, zstd_encode.O2_META + 4].sum())
+            + 4 * (3 * nseq + 8 * B), B * zcap + 8 * B)
+        comp = rungs["exact entropy"][0]
+        row = {"corpus": name, "format": "zstd", "chunks": B, "raw_bytes": raw_bytes,
+               "sequences": nseq,
+               "libzstd3_ratio": raw_bytes / int(staged[name, "zstd"].total_bytes)}
+        for rung, (c, *_rest) in rungs.items():
+            row[f"ratio ({rung})"] = raw_bytes / int(c.total_bytes)
+        row.update(
+            compress_ms=time_ms(torch, lambda: batched.compress("zstd", cb)),
+            candidates2_ms=time_ms(torch, lambda: match.candidates2(cb.data, sizes, window=zwin)),
+            hist_kernel_ms=t_hist, zstd_tables_ms=time_ms(torch, tables), full_kernel_ms=t_full,
+            speed_compress_ms=time_ms(torch, lambda: zstd_encode.compress_batch(
+                cb.data, sizes, zcap, exact_entropy=False)),
+            speed_tables_ms=time_ms(torch, lambda: zstd_encode.huf_meta(
+                zstd_encode.whole_chunk_hist(cb.data, sizes))),
+            decompress_ms=time_ms(torch, lambda: zstd_decode.decompress_batch(
+                comp.data, comp.sizes, CHUNK)))
+        row["compress_GBps"] = raw_bytes / row["compress_ms"] / 1e6
+        row["speed_compress_GBps"] = raw_bytes / row["speed_compress_ms"] / 1e6
+        print(f"[full] {json.dumps(row)}")
     print(f"[full] peak device memory of the main-path run: {peak} bytes")
-    del results, staged, dresults, dstaged, zresults
+    del results, staged, dresults, dstaged, zresults, zenc
 
     # --------------------------------------------------------------- 5 manager
     verify = ChecksumPolicy.COMPUTE_AND_VERIFY
     bufs = {name: torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(dev)
             for name, raw in corpora.items()}
-    mgr_opts = {"lz4": None, "snappy": None, "deflate": fdeflate.DeflateOpts(algo=1)}
+    mgr_opts = {"lz4": None, "snappy": None, "deflate": fdeflate.DeflateOpts(algo=1),
+                "zstd": None}
     torch.cuda.synchronize()
     reset_counts()
     frames = {}
@@ -620,9 +735,9 @@ def main() -> int:
     torch.cuda.synchronize()
     mgr_launches = read_counts()
     print(f"[manager] launches in the Manager-path run: {mgr_launches}")
-    # algo 1 runs the hist and emit walks, not the fixed one; no zstd Manager yet
+    # algo 1 runs the hist and emit walks, not the fixed one; 64 KiB chunks take row 18
     check(all(v > 0 for k, v in mgr_launches.items()
-              if k not in ("deflate_encode_fixed", "zstd_decode", "zstd_decode_big")),
+              if k not in ("deflate_encode_fixed", "zstd_decode_big")),
           f"a kernel was not launched on the Manager path: {mgr_launches}")
     for (name, fmt), (frame, mgr, cfg, out) in frames.items():
         buf = bufs[name]
@@ -676,7 +791,8 @@ def main() -> int:
                         "bound_by": "bytes", "library_ms": None})
     print("[kernels] ms, bound_ms: the two full-width corpora summed (deflate_decode on "
           "the zlib-staged streams, deflate_encode_hist/emit in algo 1, zstd_decode on "
-          "1024 x 64 KiB and zstd_decode_big on 4 x 16 MiB libzstd-staged frames); "
+          "1024 x 64 KiB and zstd_decode_big on 4 x 16 MiB libzstd-staged frames, "
+          "zstd_encode_hist/zstd_encode in exact entropy); "
           "launches: the batched main-path run; plain_ms: the plain version on the phase-3 "
           "inputs (host); no PyTorch call computes LZ4, Snappy, Deflate or Zstandard")
     print(json.dumps({"kernels": kernels}))

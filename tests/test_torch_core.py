@@ -186,8 +186,9 @@ def test_unported_paths_raise_not_implemented():
         batched.decompress("snappy", cb, 16, backend="xla")
     with pytest.raises(ValueError, match="unknown backend"):
         batched.decompress("lz4", cb, 16, backend="pallas")
-    with pytest.raises(NotImplementedError, match="ROADMAP B.7"):
-        batched.compress("zstd", cb)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):   # zstd above 64 KiB chunks
+        batched.compress("zstd", chunk.ChunkBatch.from_bytes(b"abcdefgh" * 4, 65544,
+                                                             device="cpu"))
     with pytest.raises(ValueError, match="unknown format"):
         batched.compress("brotli", cb)
 

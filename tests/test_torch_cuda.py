@@ -21,11 +21,12 @@ from tpucomp_torch.formats import deflate as fdeflate
 from tpucomp_torch.formats import gzip as fgzip
 from tpucomp_torch.formats import lz4 as flz4
 from tpucomp_torch.formats import snappy as fsnappy
+from tpucomp_torch.formats import zstd as fzstd
 from tpucomp_torch.interop import cpu as interop
 from tpucomp_torch.manager import ChecksumPolicy, Manager, create_manager
 from tpucomp_torch.ops import match
 from tpucomp_torch.ops.cuda import (deflate_decode, deflate_encode, lz4_decode2, lz4_encode2,
-                                    snappy_decode, snappy_encode2, zstd_decode)
+                                    snappy_decode, snappy_encode2, zstd_decode, zstd_encode)
 from tpucomp_torch.utils import synth
 
 pytestmark = pytest.mark.cuda
@@ -170,7 +171,7 @@ def test_crc32_on_card_equals_cpu(card):
                        crc32.crc32_batch(cb.data, cb.sizes))
 
 
-@pytest.mark.parametrize("fmt", ["lz4", "snappy", "deflate"])
+@pytest.mark.parametrize("fmt", ["lz4", "snappy", "deflate", "zstd"])
 def test_manager_on_card(card, fmt):
     buf = synth.mixed_corpus(1 << 20, seed=10).tobytes()
     opts = fdeflate.DeflateOpts(1) if fmt == "deflate" else None
@@ -324,3 +325,83 @@ def test_zstd_batched_dispatch_on_card(card):
         dec, st = batched.decompress("zstd", cb, chunk)
         assert kernel.launches == before + 1
         assert (st == Status.SUCCESS).all() and dec.to_bytes() == buf
+
+
+def _zstd_encode_batch() -> ChunkBatch:
+    """64 KiB rows: mixed, mortgage-like, runs, random, the sequence-heavy row
+    of tests/test_pallas_zstd.py:212-226, the period-16 stride, short sizes."""
+    cap = 65536
+    rng = np.random.default_rng(5)
+    seq_heavy = b"".join(b"abcd" + rng.integers(0, 256, 2, dtype=np.uint8).tobytes()
+                         for _ in range(12000))[:cap]
+    base = (np.arange(16, dtype=np.uint8) * 7 + 3).tobytes()
+    stride = b"".join(base + bytes([i & 0xFF]) for i in range(4000))[:cap]
+    rows = _batch(cap, seed=13).chunk_list()[:4]
+    rows += [seq_heavy, stride] + rows[:1] * 7
+    out = ChunkBatch.from_chunks(rows, cap, device="cpu")
+    out.sizes[6:] = torch.tensor((0, 1, 3, 4, 5, 20, 700), dtype=torch.int32)
+    return out
+
+
+@pytest.mark.parametrize("out_cap", ["bound", 2048])
+@pytest.mark.parametrize("exact", [True, False])
+def test_zstd_encode_kernels_equal_plain(card, exact, out_cap):
+    """The hist and full walks (and the whole pipeline) against their plain
+    versions at 64 KiB, in exact entropy and in the speed rung."""
+    cb = _zstd_encode_batch()
+    oc = fzstd.max_compressed_chunk_size(65536) if out_cap == "bound" else out_cap
+    cands = match.candidates2(cb.data, cb.sizes, window=zstd_encode.MAX_CAP)
+    cands_card = [c.to(card) for c in cands]
+    data, sizes = cb.data.to(card), cb.sizes.to(card)
+    if exact:
+        want = zstd_encode.hist_plain(cb.data, cb.sizes, cands)
+        assert _equal(zstd_encode.hist_kernel(data, sizes, cands_card), want)
+        fse_tab, nc = zstd_encode.seq_tables(want[1])
+        freq = want[0]
+    else:
+        fse_tab, nc = zstd_encode.speed_tables(cb.num_chunks, "cpu")
+        freq = zstd_encode.whole_chunk_hist(cb.data, cb.sizes)
+    meta, tree = zstd_encode.huf_meta(freq)
+    want = zstd_encode.full_plain(cb.data, cb.sizes, cands, meta, tree, fse_tab, nc, oc)
+    got = zstd_encode.full_kernel(data, sizes, cands_card, meta.to(card), tree.to(card),
+                                  fse_tab.to(card), nc.to(card), oc)
+    assert _equal(got, want)
+    before = (zstd_encode.hist_kernel.launches, zstd_encode.full_kernel.launches)
+    got = zstd_encode.compress_batch(data, sizes, oc, exact_entropy=exact)
+    torch.cuda.synchronize()
+    assert (zstd_encode.hist_kernel.launches, zstd_encode.full_kernel.launches) == (
+        before[0] + int(exact), before[1] + 1)
+    assert _equal(got, want)
+    if out_cap == "bound":
+        assert (want[2] == Status.SUCCESS).all()
+    else:
+        assert (want[2] == Status.ERROR_OUTPUT_BUFFER_TOO_SMALL).any()
+
+
+def test_zstd_tables_on_card_equal_cpu(card):
+    cb = _zstd_encode_batch()
+    cands = match.candidates2(cb.data, cb.sizes, window=zstd_encode.MAX_CAP)
+    freq, sch = zstd_encode.hist_plain(cb.data, cb.sizes, cands)
+    assert _equal(zstd_encode.seq_tables(sch.to(card)), zstd_encode.seq_tables(sch))
+    assert _equal(zstd_encode.huf_meta(freq.to(card)), zstd_encode.huf_meta(freq))
+    assert _equal((zstd_encode.whole_chunk_hist(cb.data.to(card), cb.sizes.to(card)),),
+                  (zstd_encode.whole_chunk_hist(cb.data, cb.sizes),))
+
+
+def test_zstd_compress_on_card_read_by_libzstd(card):
+    """batched.compress("zstd") on the card: libzstd and the port's decoder
+    read every frame back bit-exact; a batch above 64 KiB raises (A.6)."""
+    if not interop.available()["zstd"]:
+        pytest.skip("libzstd is not installed")
+    buf = synth.mixed_corpus(4 << 20, seed=14).tobytes()
+    cb = ChunkBatch.from_bytes(buf, 65536)                           # the card
+    before = zstd_encode.full_kernel.launches
+    comp, st = batched.compress("zstd", cb)
+    assert zstd_encode.full_kernel.launches == before + 1
+    assert (st == Status.SUCCESS).all()
+    raws = cb.chunk_list()
+    assert all(interop.zstd_decompress(f, len(r)) == r for f, r in zip(comp.chunk_list(), raws))
+    dec, dst = batched.decompress("zstd", comp, 65536)
+    assert (dst == Status.SUCCESS).all() and dec.to_bytes() == buf
+    with pytest.raises(NotImplementedError, match="A.6"):
+        batched.compress("zstd", ChunkBatch.from_bytes(buf[:200000], 131072))

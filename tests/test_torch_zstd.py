@@ -250,8 +250,8 @@ def test_batched_api_and_bounds():
     dec, st = batched.decompress("zstd", cb, 8192)
     assert st.tolist() == [0, 0]
     assert dec.chunk_list() == [RAWS["mixed"], RAWS["text"]]
-    with pytest.raises(NotImplementedError, match="ROADMAP B.7"):
-        batched.compress("zstd", ChunkBatch.from_bytes(b"abcdefgh" * 4, 16, device="cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):   # above 64 KiB chunks
+        batched.compress("zstd", ChunkBatch.from_bytes(b"abcdefgh" * 4, 65544, device="cpu"))
     with pytest.raises(NotImplementedError, match="formats/zstd.py"):
         batched.decompress("zstd", cb, 8192, backend="xla")
     with pytest.raises(ValueError, match="CUDA"):

@@ -49,7 +49,6 @@ class CodecSpec:
     get_decompress_size: Callable | None = None  # (comp, comp_sizes) -> sizes
     elem_size: Callable[[Any], int] | None = None  # typed codecs: opts -> element bytes
     decompression_only: bool = False  # e.g. gzip (README.md:16)
-    compress_todo: str = ""  # why compress is not ported yet (it then raises NotImplementedError)
 
 
 _REGISTRY: dict[str, CodecSpec] = {}
@@ -196,8 +195,6 @@ def compress(fmt: str, batch: ChunkBatch, opts: Any = None,
     spec = _get(fmt)
     if spec.decompression_only:
         raise ValueError(f"{fmt} provides decompression only")
-    if spec.compress_todo:
-        raise NotImplementedError(f"{fmt} compress: {spec.compress_todo}")
     opts = opts if opts is not None else spec.default_opts
     if out_cap is None:
         out_cap = spec.max_compressed_chunk_size(batch.max_chunk_bytes, opts)

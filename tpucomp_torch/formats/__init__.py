@@ -1,9 +1,9 @@
 """Format codecs registered with :mod:`tpucomp_torch.batched`.
 
 Port of :mod:`tpucomp.formats`.  LZ4, Snappy, Deflate, gzip (decompression
-only) and Zstandard decompression are ported so far (and the CRC32 of
-:mod:`.crc32`, which registers no codec); the other formats follow in the
-order of ``ROADMAP.md``.
+only) and Zstandard (compression of chunks up to 64 KiB) are ported so far
+(and the CRC32 of :mod:`.crc32`, which registers no codec); the other
+formats follow in the order of ``ROADMAP.md``.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ def register_all() -> None:
     from tpucomp_torch.formats import deflate, gzip, lz4, snappy, zstd
     from tpucomp_torch.ops.cuda import (deflate_decode, deflate_encode, lz4_decode2,
                                         lz4_encode2, snappy_decode, snappy_encode2,
-                                        zstd_decode)
+                                        zstd_decode, zstd_encode)
 
     batched.register(CodecSpec(
         name="lz4",
@@ -65,10 +65,10 @@ def register_all() -> None:
     ))
     batched.register(CodecSpec(
         name="zstd",
-        # zstd is not a decompress-only format in the reference: compress
-        # raises NotImplementedError until its encoder is ported
-        compress_batch=None,
-        compress_todo=zstd.COMPRESS_TODO,
+        # the portable entry is the kernel pipeline's plain version up to
+        # 64 KiB chunks; above, the reference's XLA multi-block encoder is not
+        # ported yet (NotImplementedError, ROADMAP A.6)
+        compress_batch=lambda d, s, o, c: zstd_encode.dispatch(d, s, c, plain=True),
         decompress_batch=lambda c, s, oc: zstd_decode.dispatch(c, s, oc, plain=True),
         max_compressed_chunk_size=zstd.max_compressed_chunk_size,
         default_opts=zstd.DEFAULT_OPTS,

@@ -32,9 +32,9 @@ without one); pass ``device="cpu"`` for the plain versions on the host.
 PyTorch runs eagerly, so there is no compiled-program cache.  Host syncs are
 the reference's two: reading the 56-byte header, and reading the frame's
 total size to trim it.  Formats not ported yet raise ``ValueError`` from the
-format registry, and a format whose encoder is not ported yet (its
-``CodecSpec.compress_todo``, zstd's ROADMAP B.7) raises ``NotImplementedError``:
-a frame is written before it is read.
+format registry; a zstd manager whose chunks exceed 64 KiB raises
+``NotImplementedError`` at ``compress`` (the reference's XLA multi-block
+encoder is not ported yet, ROADMAP A.6) and still reads frames.
 """
 from __future__ import annotations
 
@@ -152,8 +152,6 @@ class Manager:
         if fmt not in FORMAT_IDS:
             raise ValueError(f"unknown format {fmt!r}")
         self.spec = _batched._get(fmt)
-        if self.spec.compress_todo:   # a frame is written before it is read
-            raise NotImplementedError(f"Manager({fmt!r}): {self.spec.compress_todo}")
         self.chunk_size = int(chunk_size)
         self.opts = opts if opts is not None else self.spec.default_opts
         self.checksum_policy = ChecksumPolicy(checksum_policy)

@@ -19,6 +19,9 @@ the same module, sits its plain version with the same signature.
   (``csrc/deflate_encode.cu``), with the dynamic tables in torch ops.
 - :mod:`.zstd_decode` — the RFC 8878 frame decoder (``csrc/zstd_decode.cu``),
   one kernel behind the reference's two wrappers, chosen by its dispatch gate.
+- :mod:`.zstd_encode` — the Zstandard walk over :func:`tpucomp_torch.ops
+  .match.candidates2` in modes hist and full (``csrc/zstd_encode.cu``), with
+  the FSE and Huffman tables in torch ops; chunks up to 64 KiB.
 - ``csrc/bytecopy.cuh`` — the warp byte-copy helpers they share.
 
 ``KERNEL_DECODERS`` / ``KERNEL_ENCODERS`` map a format name to the kernel
@@ -71,6 +74,14 @@ def _zstd_decompress_batch(comp, comp_sizes, out_cap):
     return zstd_decode.dispatch(comp, comp_sizes, out_cap)
 
 
+def _zstd_compress_batch(data, sizes, opts, out_cap):
+    """The exact-entropy kernel pipeline up to 64 KiB chunks; above, the
+    reference's XLA multi-block encoder, not ported yet: NotImplementedError
+    (``ops/pallas/__init__.py:253-267``).  ZstdOpts is empty."""
+    from tpucomp_torch.ops.cuda import zstd_encode
+    return zstd_encode.dispatch(data, sizes, out_cap)
+
+
 def _deflate_compress_batch(data, sizes, opts, out_cap):
     from tpucomp_torch.ops.cuda import deflate_encode
     return deflate_encode.compress_algo(data, sizes, opts, out_cap)
@@ -88,4 +99,5 @@ KERNEL_ENCODERS = {
     "lz4": _lz4_compress_batch,
     "snappy": _snappy_compress_batch,
     "deflate": _deflate_compress_batch,
+    "zstd": _zstd_compress_batch,
 }
