@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of tpucomp_torch: batched LZ4, Snappy, Deflate (algos
-0, 1, 2), gzip decompress and Zstandard, and the Manager frame path with
-CRC32 checksums, on one NVIDIA GPU.
+0, 1, 2), gzip decompress, Zstandard and GDeflate (algos 0, 1, 2), and the
+Manager frame path with CRC32 checksums, on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``:
 
@@ -11,10 +11,10 @@ Phases, each printing its own lines; any failure ends the run with a non-zero
 exit code and no result line:
 
 1. device: name, count, and ``nvidia-smi``'s name and power limit;
-2. build: the eight CUDA libraries from ``tpucomp_torch/ops/cuda/csrc`` (one
+2. build: the ten CUDA libraries from ``tpucomp_torch/ops/cuda/csrc`` (one
    ``nvcc`` each, in parallel), with their ``-Xptxas -v`` register/shared-memory
    lines;
-3. kernel vs plain: each of the twelve kernels on the card against its plain
+3. kernel vs plain: each of the sixteen kernels on the card against its plain
    version on a host copy of the same inputs (<= 8 chunks per corpus at the
    main path's 64 KiB shape, edge and hand-made streams, truncated and
    bit-flipped streams, an out_cap that is too small; for Deflate, zlib
@@ -26,8 +26,16 @@ exit code and no result line:
    of each corpus at the main path's shape; the encoder's hist and full walks
    on the head chunks, the edge inputs of tests/test_pallas_zstd.py and its
    64 KiB sequence-heavy chunk, in exact entropy at two out_caps and in the
-   speed rung, with its tables on the card against the CPU); exact equality
-   of bytes, sizes, statuses and table words;
+   speed rung, with its tables on the card against the CPU; for GDeflate,
+   the hist and fixed/emit walks and the whole encode in algos 0/1/2 on the
+   head chunks, the edge rows of tests/test_pallas_gdeflate.py and a 64 KiB
+   row with distances above 49152, at out_cap = bound and 4096, with
+   ``dyn_tables_gd``, ``schedule_and_assemble`` and ``tile_tables`` on the
+   card against the CPU (each plain walk runs once; its lanes are assembled
+   at both out_caps), then the parse and the replay on those tiles,
+   truncated, bit-flipped and future-version tiles and the three tiles of
+   tests/golden/gdeflate.bin, at a 64 KiB and a too-small out_cap); exact
+   equality of bytes, sizes, statuses, tokens and table words;
 4. full width: two 64 MiB corpora from seed 42 (``mortgage_like``,
    ``mixed_corpus``) cut into 1024 chunks of 64 KiB, one batch each, through
    ``batched.compress`` / ``batched.decompress`` (backend "auto") for LZ4,
@@ -35,12 +43,16 @@ exit code and no result line:
    ``batched.decompress("zstd")`` on the same chunks staged by libzstd level
    3 (row 18) and on each corpus as 4 chunks of 16 MiB (row 19), and
    ``batched.compress("zstd")`` (rows 20-21, exact entropy) with its speed
-   rung (``exact_entropy=False``), with the launch counts of that run,
+   rung (``exact_entropy=False``), ``batched.compress`` /
+   ``batched.decompress("gdeflate")`` in algos 0, 1, 2 (rows 13-14, 16-17;
+   tests/gdeflate_pyref.py reads three tiles of each), with the launch
+   counts of that run,
    bit-exact round trips, the decoders reading streams staged by liblz4 /
    libsnappy / zlib level 6 / gzip / libzstd, liblz4, libsnappy, zlib,
    libdeflate and libzstd reading the port's frames, and CUDA-event timings;
 5. manager: each corpus as one 64 MiB buffer through ``Manager(fmt, 65536,
-   COMPUTE_AND_VERIFY)`` for LZ4, Snappy, Deflate (algo 1) and Zstandard,
+   COMPUTE_AND_VERIFY)`` for LZ4, Snappy, Deflate (algo 1), Zstandard and
+   GDeflate (algo 1),
    ``create_manager`` and
    ``decompress`` (bit-exact, ``SUCCESS``), a flipped payload byte
    (``ERROR_BAD_CHECKSUM``), the frame without its CRC tables through a
@@ -72,6 +84,7 @@ BIG_CHUNK = 1 << 24       # the reference's largest zstd chunk (16 MiB)
 BIG_ITERS = 3             # timing iterations in the 16 MiB regime
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 WARMUP, ITERS = 2, 10
+GD_ITERS = 3              # timing iterations of the GDeflate encode stages
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "lz4_decode": ("lz4_decode.cu", "tpucomp/ops/pallas/lz4_decode2.py:34"),
     "lz4_encode": ("lz4_encode.cu", "tpucomp/ops/pallas/lz4_encode2.py:50"),
@@ -85,6 +98,10 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "zstd_decode_big": ("zstd_decode.cu", "tpucomp/ops/pallas/zstd_decode.py:109"),
     "zstd_encode_hist": ("zstd_encode.cu", "tpucomp/ops/pallas/zstd_encode.py:237"),
     "zstd_encode": ("zstd_encode.cu", "tpucomp/ops/pallas/zstd_encode.py:237"),
+    "gdeflate_parse": ("gdeflate_vdecode.cu", "tpucomp/ops/pallas/gdeflate_vdecode.py:67"),
+    "gdeflate_exec": ("gdeflate_vdecode.cu", "tpucomp/ops/pallas/gdeflate_vdecode.py:225"),
+    "gdeflate_encode_hist": ("gdeflate_encode.cu", "tpucomp/ops/pallas/gdeflate_encode.py:54"),
+    "gdeflate_encode": ("gdeflate_encode.cu", "tpucomp/ops/pallas/gdeflate_encode.py:54"),
 }
 ALGOS = (0, 1, 2)
 
@@ -143,6 +160,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    phase_s, clock = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        """Charge the wall time since the last lap to phase ``name``."""
+        now = time.perf_counter()
+        phase_s[name] = round(now - clock[0], 1)
+        clock[0] = now
+
     import tpucomp_torch
     check(Path(tpucomp_torch.__file__).resolve().parent == HERE / "tpucomp_torch",
           f"tpucomp_torch was imported from {tpucomp_torch.__file__}, not from "
@@ -152,6 +177,7 @@ def main() -> int:
     from tpucomp_torch.constants import Status
     from tpucomp_torch.formats import crc32
     from tpucomp_torch.formats import deflate as fdeflate
+    from tpucomp_torch.formats import gdeflate as fgdeflate
     from tpucomp_torch.formats import gzip as fgzip
     from tpucomp_torch.formats import lz4 as flz4
     from tpucomp_torch.formats import snappy as fsnappy
@@ -159,30 +185,39 @@ def main() -> int:
     from tpucomp_torch.interop import cpu as interop
     from tpucomp_torch.manager import ChecksumPolicy, Manager, create_manager
     from tpucomp_torch.ops import match
-    from tpucomp_torch.ops.cuda import (_build, deflate_decode, deflate_encode, lz4_decode2,
+    from tpucomp_torch.ops.cuda import (_build, deflate_decode, deflate_encode,
+                                        gdeflate_encode, gdeflate_vdecode, lz4_decode2,
                                         lz4_encode2, snappy_decode, snappy_encode2,
                                         zstd_decode, zstd_encode)
     from tpucomp_torch.utils import synth
+    sys.path.insert(0, str(HERE / "tests"))
+    import gdeflate_pyref as pyref    # the format's serial Python codec (no JAX)
 
-    counters = {"lz4_decode": lz4_decode2.decompress_batch,
-                "lz4_encode": lz4_encode2.emit_kernel,
-                "snappy_decode": snappy_decode.decompress_batch,
-                "snappy_encode": snappy_encode2.emit_kernel,
-                "deflate_decode": deflate_decode.decompress_batch,
-                "deflate_encode_fixed": deflate_encode.fixed_kernel,
-                "deflate_encode_hist": deflate_encode.hist_kernel,
-                "deflate_encode_emit": deflate_encode.emit_kernel,
-                "zstd_decode": zstd_decode.decompress_batch,
-                "zstd_decode_big": zstd_decode.decompress_batch_big,
-                "zstd_encode_hist": zstd_encode.hist_kernel,
-                "zstd_encode": zstd_encode.full_kernel}
+    counters = {"lz4_decode": (lz4_decode2.decompress_batch,),
+                "lz4_encode": (lz4_encode2.emit_kernel,),
+                "snappy_decode": (snappy_decode.decompress_batch,),
+                "snappy_encode": (snappy_encode2.emit_kernel,),
+                "deflate_decode": (deflate_decode.decompress_batch,),
+                "deflate_encode_fixed": (deflate_encode.fixed_kernel,),
+                "deflate_encode_hist": (deflate_encode.hist_kernel,),
+                "deflate_encode_emit": (deflate_encode.emit_kernel,),
+                "zstd_decode": (zstd_decode.decompress_batch,),
+                "zstd_decode_big": (zstd_decode.decompress_batch_big,),
+                "zstd_encode_hist": (zstd_encode.hist_kernel,),
+                "zstd_encode": (zstd_encode.full_kernel,),
+                "gdeflate_parse": (gdeflate_vdecode.parse_kernel,),
+                "gdeflate_exec": (gdeflate_vdecode.exec_kernel,),
+                "gdeflate_encode_hist": (gdeflate_encode.hist_kernel,),
+                # row 17: one kernel body in the modes fixed (algo 0) and emit
+                "gdeflate_encode": (gdeflate_encode.fixed_kernel, gdeflate_encode.emit_kernel)}
 
     def reset_counts() -> None:
-        for fn in counters.values():
-            fn.launches = 0
+        for fns in counters.values():
+            for fn in fns:
+                fn.launches = 0
 
     def read_counts() -> dict:
-        return {k: fn.launches for k, fn in counters.items()}
+        return {k: sum(fn.launches for fn in fns) for k, fns in counters.items()}
 
     # ---------------------------------------------------------------- 1 device
     kind = torch.cuda.get_device_name(0)
@@ -201,6 +236,8 @@ def main() -> int:
         print(f"[build] {name}: {secs[name]:.1f} s")
         for line in _build.ptxas_report(name):
             print(f"[build]   {line}")
+
+    lap("1-2 device, imports, build")
 
     # ------------------------------------------------------------ corpora
     t0 = time.perf_counter()
@@ -231,6 +268,8 @@ def main() -> int:
         comp, st = batched.compress(fmt, cb)
         check(bool((st == Status.SUCCESS).all()), f"staging with the port's {fmt} encoder")
         return comp.chunk_list()
+
+    lap("corpora")
 
     # ------------------------------------------------------- 3 kernel vs plain
     max_err = {k: 0 for k in KERNELS}
@@ -464,6 +503,120 @@ def main() -> int:
                     zargs + (meta, tree, fse_tab, nc, cap),
                     f"{ze_in.num_chunks} chunks, {rung}, out_cap {cap}")
 
+    lap("3 lz4, snappy, deflate, zstd")
+
+    # GDeflate encode: the hist and fixed/emit walks on the head chunks, the edge
+    # rows of tests/test_pallas_gdeflate.py:22-32 and a 64 KiB row with
+    # distances above 49152 (:63-72), with and without matches; dyn_tables_gd,
+    # schedule_and_assemble and the whole encode of each algo (out_cap = bound
+    # and 4096) on the card against the CPU
+    def same_on_card(what: str, on_card, on_cpu) -> None:
+        check(all(torch.equal(g.cpu(), c.cpu()) for g, c in zip(on_card, on_cpu)),
+              f"{what} on the card differs from the CPU")
+        print(f"[kernel=plain] {what} on the card == on the CPU")
+
+    gdcap = fgdeflate.max_compressed_chunk_size(CHUNK)
+    grng = np.random.default_rng(7)
+    gseg = bytes(np.random.default_rng(3).integers(0, 256, 40_000, dtype=np.uint8))
+    gedge = [b"hello gdeflate, hello gdeflate, hello gdeflate! " * 30,
+             bytes(grng.integers(0, 4, 3000, dtype=np.uint8)),
+             bytes(grng.integers(0, 256, 700, dtype=np.uint8)), b"\x00" * 3000, b"ab" * 1200,
+             b"x", b""]
+    g_in = ChunkBatch.from_chunks(enc_rows + gedge + [gseg + b"\x00" * 12_000 + gseg[:12_000]],
+                                  CHUNK, device="cpu")
+    gd, gs = g_in.data.to(dev), g_in.sizes.to(dev)
+    gc_cpu = match.candidates2(g_in.data, g_in.sizes)
+    same_on_card("candidates2 (GDeflate rows)", match.candidates2(gd, gs), gc_cpu)
+    gargs = (g_in.data, g_in.sizes, *gc_cpu)
+    # algo -> the plain walk's lanes and the tile header fields they are assembled with
+    glanes = {0: (compare("gdeflate_encode",
+                          lambda d, s, a, b, n: gdeflate_encode.fixed_kernel(d, s, (a, b, n)),
+                          lambda d, s, a, b, n: gdeflate_encode.fixed_plain(d, s, (a, b, n)),
+                          gargs, f"{g_in.num_chunks} chunks, mode fixed (algo 0)"),
+                  gdeflate_encode.fixed_header(g_in.num_chunks, "cpu"))}
+    for eo in (False, True):
+        how = "entropy only (algo 2)" if eo else "matches (algo 1)"
+        a_cpu = gargs if not eo else (g_in.data, g_in.sizes)
+
+        def gcands(rest):
+            return None if eo else tuple(rest)
+
+        hist = compare("gdeflate_encode_hist",
+                       lambda d, s, *c: gdeflate_encode.hist_kernel(d, s, gcands(c)),
+                       lambda d, s, *c: gdeflate_encode.hist_plain(d, s, gcands(c)),
+                       a_cpu, f"{g_in.num_chunks} chunks, {how}")
+        gtab = gdeflate_encode.dyn_tables_gd(*hist)
+        same_on_card(f"dyn_tables_gd ({how})",
+                     gdeflate_encode.dyn_tables_gd(*(h.to(dev) for h in hist)), gtab)
+        lanes = compare("gdeflate_encode",
+                        lambda d, s, *r: gdeflate_encode.emit_kernel(d, s, gcands(r[:-1]), r[-1]),
+                        lambda d, s, *r: gdeflate_encode.emit_plain(d, s, gcands(r[:-1]), r[-1]),
+                        a_cpu + (gtab[0],), f"{g_in.num_chunks} chunks, mode emit, {how}")
+        glanes[2 if eo else 1] = (lanes, (torch.where(gtab[3], 2, 1).to(torch.int32),
+                                          gtab[1], gtab[2]))
+    # each plain walk ran once above: the plain encode of an algo is its
+    # lanes through schedule_and_assemble, here at both out_caps
+    g_tiles = []
+    for algo in ALGOS:
+        gopts = fgdeflate.GdeflateOpts(algo)
+        lanes, ghead = glanes[algo]
+        for cap in (gdcap, 4096):
+            sched = (*lanes, g_in.data, g_in.sizes, cap, *ghead)
+            want = gdeflate_encode.schedule_and_assemble(*sched)
+            same_on_card(f"schedule_and_assemble (algo {algo}, out_cap {cap})",
+                         gdeflate_encode.schedule_and_assemble(
+                             *[x.to(dev) if torch.is_tensor(x) else x for x in sched]), want)
+            same_on_card(f"GDeflate compress algo {algo}, out_cap {cap} "
+                         f"({int((want[2] == 0).sum())} of {g_in.num_chunks} fit)",
+                         gdeflate_encode.compress_algo(gd, gs, gopts, cap), want)
+            if cap == gdcap:
+                g_tiles += [want[0][i, :want[1][i]].numpy().tobytes()
+                            for i in range(g_in.num_chunks)]
+
+    lap("3 gdeflate encode")
+
+    # GDeflate decode: the parse and the replay on those tiles, pyref tiles of
+    # btype 0/1/2, truncated, bit-flipped, future-version and btype-3 tiles and
+    # tests/golden/gdeflate.bin, at a 64 KiB and a too-small out_cap; then the
+    # whole decode and tile_tables on the card against the CPU
+    gblob = (HERE / "tests" / "golden" / "gdeflate.bin").read_bytes()
+    ngold = int(np.frombuffer(gblob[:4], np.int32)[0])
+    gold_sz = np.frombuffer(gblob[4:4 + 4 * ngold], np.int32)
+    gold_off = 4 + 4 * ngold + np.concatenate([[0], np.cumsum(gold_sz)])
+    gold = [gblob[gold_off[i]:gold_off[i + 1]] for i in range(ngold)]
+    graw = (HERE / "tests" / "golden" / "input.bin").read_bytes()
+    gk = len(graw) // 3
+    gtile = g_tiles[g_in.num_chunks + PHASE3_CHUNKS]     # algo 1, the first mixed chunk
+    g_dec = (g_tiles + [pyref.compress(r, btype=b) for r in gedge for b in (0, 1, 2)]
+             + fuzz(gtile) + [gtile[:1] + b"\x02" + gtile[2:], b"\x03" + bytes(16)] + gold)
+    gd_in = ChunkBatch.from_chunks(g_dec, gdcap, device="cpu")
+    def fields(tables) -> list:
+        return [x for t in tables for x in (t if isinstance(t, tuple) else (t,))]
+
+    same_on_card("tile_tables", fields(fgdeflate.tile_tables(gd_in.data.to(dev))),
+                 fields(fgdeflate.tile_tables(gd_in.data)))
+    for cap, label in ((CHUNK, "64 KiB out_cap"), (1000, "out_cap too small")):
+        what = f"{len(g_dec)} tiles, {label}"
+        parse = compare("gdeflate_parse", gdeflate_vdecode.parse_kernel,
+                        gdeflate_vdecode.parse_plain, (gd_in.data, gd_in.sizes, cap), what)
+        n_eff = torch.minimum(parse[0][:, 1], torch.tensor(parse[1].shape[1],
+                                                           dtype=torch.int32))
+        replay = compare("gdeflate_exec", gdeflate_vdecode.exec_kernel,
+                         gdeflate_vdecode.exec_plain, (parse[1], n_eff, cap), what)
+        want = gdeflate_vdecode._compose(gd_in.data, gd_in.sizes, cap, parse[0], parse[2],
+                                         parse[3], *replay)
+        got = gdeflate_vdecode.decompress_batch(gd_in.data.to(dev), gd_in.sizes.to(dev), cap)
+        st = np.bincount(want[2].numpy(), minlength=16)
+        same_on_card(f"GDeflate decompress, {what} (ok/cannot/small {st[0]}/{st[12]}/{st[15]})",
+                     got, want)
+        if cap == CHUNK:
+            g_ok = [want[0][i, :want[1][i]].numpy().tobytes() for i in range(len(g_dec))]
+            check(g_ok[-ngold:] == [graw[:gk], graw[gk:2 * gk], graw[2 * gk:]]
+                  and g_ok[:len(g_tiles)] == g_in.chunk_list() * len(ALGOS),
+                  "GDeflate: the golden tiles or the port's tiles do not decode")
+
+    lap("3 gdeflate decode")
+
     # ------------------------------------------------------------ 4 full width
     batches, staged = {}, {}
     for name, raw in corpora.items():
@@ -485,9 +638,10 @@ def main() -> int:
             list(pool.map(interop.zstd_compress, big_chunks)),
             fzstd.max_compressed_chunk_size(BIG_CHUNK), device=dev)
     torch.cuda.synchronize()
+    lap("4 staging")
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    results, dresults, dstaged, zresults, zenc = {}, {}, {}, {}, {}
+    results, dresults, dstaged, zresults, zenc, gresults = {}, {}, {}, {}, {}, {}
     for name, cb in batches.items():          # the main path, once
         for fmt in out_caps:
             comp, cst = batched.compress(fmt, cb)
@@ -508,12 +662,18 @@ def main() -> int:
         zspeed = ChunkBatch(data=sout, sizes=ssz)
         zenc[name] = {"exact entropy": (zcomp, zcst) + batched.decompress("zstd", zcomp, CHUNK),
                       "speed rung": (zspeed, sst) + batched.decompress("zstd", zspeed, CHUNK)}
+        for algo in ALGOS:
+            gcomp, gcst = batched.compress("gdeflate", cb, fgdeflate.GdeflateOpts(algo))
+            gresults[name, algo] = (gcomp, gcst) + batched.decompress("gdeflate", gcomp, CHUNK)
     torch.cuda.synchronize()
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     print(f"[full] launches in the main-path run: {launches}; peak device memory "
           f"{peak / 2**30:.2f} GiB")
     check(all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}")
+    check(gdeflate_encode.fixed_kernel.launches > 0 and gdeflate_encode.emit_kernel.launches > 0,
+          "the GDeflate walk was not launched in both of its emitting modes")
+    lap("4 main path")
 
     kernel_ms = {k: 0.0 for k in KERNELS}
     bound = {k: 0.0 for k in KERNELS}
@@ -713,15 +873,90 @@ def main() -> int:
         row["compress_GBps"] = raw_bytes / row["compress_ms"] / 1e6
         row["speed_compress_GBps"] = raw_bytes / row["speed_compress_ms"] / 1e6
         print(f"[full] {json.dumps(row)}")
+    lap("4 checks and timings, lz4 to zstd")
+    for (name, algo), (comp, cst, dec, dst) in gresults.items():
+        cb = batches[name]
+        B, sizes, raw_bytes = cb.num_chunks, cb.sizes, int(cb.total_bytes)
+        check(bool((cst == Status.SUCCESS).all()) and bool((dst == Status.SUCCESS).all()),
+              f"{name} gdeflate algo {algo}: statuses")
+        check(torch.equal(dec.sizes, cb.sizes) and torch.equal(dec.data, cb.data),
+              f"{name} gdeflate algo {algo}: round trip through the port's tiles")
+        tiles, raws = comp.chunk_list(), cb.chunk_list()
+        pick = (0, B // 2, B - 1)
+        check(all(pyref.decompress(tiles[i]) == raws[i] for i in pick),
+              f"{name} gdeflate algo {algo}: tests/gdeflate_pyref.py does not read the tiles")
+        opts = fgdeflate.GdeflateOpts(algo)
+        cands = None if algo == 2 else match.candidates2(cb.data, sizes)
+        parse = gdeflate_vdecode.parse_kernel(comp.data, comp.sizes, CHUNK)
+        n_eff = torch.minimum(parse[0][:, 1], torch.tensor(parse[1].shape[1], dtype=torch.int32,
+                                                           device=dev))
+        t_parse = time_ms(torch, lambda: gdeflate_vdecode.parse_kernel(comp.data, comp.sizes,
+                                                                       CHUNK))
+        t_exec = time_ms(torch, lambda: gdeflate_vdecode.exec_kernel(parse[1], n_eff, CHUNK))
+        gtimes = {"iters": GD_ITERS, "warmup": 1}
+        row = {"corpus": name, "format": "gdeflate", "algo": algo, "chunks": B,
+               "raw_bytes": raw_bytes, "ratio": raw_bytes / int(comp.total_bytes),
+               "pyref_read": len(pick),
+               "compress_ms": time_ms(torch, lambda: batched.compress("gdeflate", cb, opts),
+                                      **gtimes),
+               "decompress_ms": time_ms(torch, lambda: batched.decompress("gdeflate", comp,
+                                                                           CHUNK)),
+               "parse_kernel_ms": t_parse, "exec_kernel_ms": t_exec,
+               "tokens": int(n_eff.sum())}
+        if cands is not None:
+            row["candidates2_ms"] = time_ms(torch, lambda: match.candidates2(cb.data, sizes),
+                                            **gtimes)
+        io_bytes = raw_bytes + 4 * B
+        if algo == 0:
+            lanes = gdeflate_encode.fixed_kernel(cb.data, sizes, cands)
+            extra = gdeflate_encode.fixed_header(B, dev)
+            row["fixed_kernel_ms"] = time_ms(
+                torch, lambda: gdeflate_encode.fixed_kernel(cb.data, sizes, cands), **gtimes)
+        else:
+            llh, dh = gdeflate_encode.hist_kernel(cb.data, sizes, cands)
+            tab, desc, hdr_b, use_dyn = gdeflate_encode.dyn_tables_gd(llh, dh)
+            lanes = gdeflate_encode.emit_kernel(cb.data, sizes, cands, tab)
+            extra = (torch.where(use_dyn, 2, 1).to(torch.int32), desc, hdr_b)
+            t_hist = time_ms(torch, lambda: gdeflate_encode.hist_kernel(cb.data, sizes, cands),
+                             **gtimes)
+            t_emit = time_ms(torch, lambda: gdeflate_encode.emit_kernel(cb.data, sizes, cands,
+                                                                        tab), **gtimes)
+            row.update(hist_kernel_ms=t_hist, emit_kernel_ms=t_emit,
+                       dyn_tables_gd_ms=time_ms(
+                           torch, lambda: gdeflate_encode.dyn_tables_gd(llh, dh), **gtimes),
+                       dynamic_tiles=int(use_dyn.sum()))
+            if algo == 1:       # the kernels line carries algo 1 (algos 0, 2: the [full] rows)
+                kernel_ms["gdeflate_encode_hist"] += t_hist
+                kernel_ms["gdeflate_encode"] += t_emit
+                bound["gdeflate_encode_hist"] += bytes_bound_ms(io_bytes, B * 320 * 4)
+                bound["gdeflate_encode"] += bytes_bound_ms(
+                    io_bytes + B * 320 * 4,
+                    4 * B * (gdeflate_encode.WCAP * 32 + gdeflate_encode.NT_CAP // 2 + 36))
+        row["schedule_and_assemble_ms"] = time_ms(
+            torch, lambda: gdeflate_encode.schedule_and_assemble(*lanes, cb.data, sizes, gdcap,
+                                                                 *extra), **gtimes)
+        if algo == 1:
+            kernel_ms["gdeflate_parse"] += t_parse
+            kernel_ms["gdeflate_exec"] += t_exec
+            bound["gdeflate_parse"] += bytes_bound_ms(
+                int(comp.total_bytes) + 4 * B,
+                4 * B * (gdeflate_vdecode.NTAB + parse[1].shape[1] + 2))
+            bound["gdeflate_exec"] += bytes_bound_ms(4 * int(n_eff.sum()) + 4 * B,
+                                                     B * CHUNK + 8 * B)
+        row["compress_GBps"] = raw_bytes / row["compress_ms"] / 1e6
+        row["decompress_GBps"] = raw_bytes / row["decompress_ms"] / 1e6
+        print(f"[full] {json.dumps(row)}")
     print(f"[full] peak device memory of the main-path run: {peak} bytes")
-    del results, staged, dresults, dstaged, zresults, zenc
+    del results, staged, dresults, dstaged, zresults, zenc, gresults
+
+    lap("4 checks and timings, gdeflate")
 
     # --------------------------------------------------------------- 5 manager
     verify = ChecksumPolicy.COMPUTE_AND_VERIFY
     bufs = {name: torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(dev)
             for name, raw in corpora.items()}
     mgr_opts = {"lz4": None, "snappy": None, "deflate": fdeflate.DeflateOpts(algo=1),
-                "zstd": None}
+                "zstd": None, "gdeflate": fgdeflate.GdeflateOpts(algo=1)}
     torch.cuda.synchronize()
     reset_counts()
     frames = {}
@@ -735,7 +970,7 @@ def main() -> int:
     torch.cuda.synchronize()
     mgr_launches = read_counts()
     print(f"[manager] launches in the Manager-path run: {mgr_launches}")
-    # algo 1 runs the hist and emit walks, not the fixed one; 64 KiB chunks take row 18
+    # algo 1 runs the hist and emit walks, not the fixed ones; 64 KiB chunks take row 18
     check(all(v > 0 for k, v in mgr_launches.items()
               if k not in ("deflate_encode_fixed", "zstd_decode_big")),
           f"a kernel was not launched on the Manager path: {mgr_launches}")
@@ -780,6 +1015,10 @@ def main() -> int:
                "bad_checksum": bcfg.get_status().name}
         print(f"[manager] {json.dumps(row)}")
 
+    lap("5 manager")
+    print(f"[time] wall seconds by phase: {json.dumps(phase_s)}; "
+          f"{sum(phase_s.values()):.1f} s in all")
+
     # -------------------------------------------------------------- 6 results
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -792,9 +1031,11 @@ def main() -> int:
     print("[kernels] ms, bound_ms: the two full-width corpora summed (deflate_decode on "
           "the zlib-staged streams, deflate_encode_hist/emit in algo 1, zstd_decode on "
           "1024 x 64 KiB and zstd_decode_big on 4 x 16 MiB libzstd-staged frames, "
-          "zstd_encode_hist/zstd_encode in exact entropy); "
-          "launches: the batched main-path run; plain_ms: the plain version on the phase-3 "
-          "inputs (host); no PyTorch call computes LZ4, Snappy, Deflate or Zstandard")
+          "zstd_encode_hist/zstd_encode in exact entropy, gdeflate_* in algo 1: "
+          "gdeflate_encode is the emit mode, gdeflate_parse/exec read the port's algo-1 "
+          "tiles); launches: the batched main-path run (gdeflate_encode: modes fixed and "
+          "emit); plain_ms: the plain version on the phase-3 inputs (host); no PyTorch "
+          "call computes LZ4, Snappy, Deflate, Zstandard or GDeflate")
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 
 import tpucomp.chunk as ref_chunk
 import tpucomp.constants as ref_constants
+import tpucomp.logging as ref_logging
 import tpucomp.utils.synth as ref_synth
 
 import tpucomp_torch.chunk as chunk
@@ -194,12 +195,72 @@ def test_unported_paths_raise_not_implemented():
 
 
 def test_api_parity_shims():
-    assert batched.formats() == ["deflate", "gzip", "lz4", "snappy", "zstd"]
+    assert batched.formats() == ["deflate", "gdeflate", "gzip", "lz4", "snappy", "zstd"]
     assert batched.compress_get_temp_size("lz4", 10, 65536) == 0
     assert batched.decompress_get_temp_size("lz4", 10, 65536) == 0
     assert batched.compress_get_temp_size_ex("lz4", 10, 65536, 1 << 20) == 0
     assert batched.decompress_get_temp_size_ex("lz4", 10, 65536, 1 << 20) == 0
     assert batched.compress_get_max_output_chunk_size("lz4", 65536) == 66560
+
+
+@pytest.mark.parametrize("kind", ["encode", "decode"])
+def test_backend_environment_overrides(monkeypatch, kind):
+    """``TPUCOMP_ENCODE_BACKEND`` / ``TPUCOMP_DECODE_BACKEND`` steer
+    ``backend="auto"`` as in the reference; ``pallas`` means the kernels."""
+    from tpucomp_torch.ops import cuda as kc
+    cb = chunk.ChunkBatch.from_bytes(b"abcdefgh" * 4, 16, device="cpu")
+    comp, _ = batched.compress("lz4", cb)
+    var = f"TPUCOMP_{kind.upper()}_BACKEND"
+    run = ((lambda **kw: batched.compress("lz4", cb, **kw)) if kind == "encode"
+           else (lambda **kw: batched.decompress("lz4", comp, 16, **kw)))
+    resolve = batched._encode_fn if kind == "encode" else batched._decode_fn
+    kernels = kc.KERNEL_ENCODERS if kind == "encode" else kc.KERNEL_DECODERS
+    spec = batched._get("lz4")
+    plain = spec.compress_batch if kind == "encode" else spec.decompress_batch
+    cpu = torch.device("cpu")
+    assert resolve("lz4", spec, "auto", cpu) is plain
+    monkeypatch.setenv(var, "pallas")
+    assert resolve("lz4", spec, "auto", cpu) is kernels["lz4"]
+    with pytest.raises(ValueError, match="CUDA"):
+        run()
+    assert resolve("lz4", spec, "plain", cpu) is plain     # an explicit backend wins
+    monkeypatch.setenv(var, "xla")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run()
+    monkeypatch.setenv(var, "plain")
+    assert resolve("lz4", spec, "auto", cpu) is plain
+    monkeypatch.setenv(var, "brotli")
+    with pytest.raises(ValueError, match="unknown backend"):
+        run()
+    with pytest.raises(ValueError, match="unknown backend"):
+        run(backend="pallas")                              # not a backend of the port
+
+
+@pytest.mark.parametrize("level", [0, 1, 2, 4])
+def test_logging_helpers_equal_reference(monkeypatch, capsys, level):
+    """``error``/``warn``/``info``/``debug`` write the reference's messages at
+    the reference's levels (the prefix names the package)."""
+    monkeypatch.setenv("TPUCOMP_LOG_LEVEL", str(level))
+    monkeypatch.setenv("TPUCOMP_LOG_FILE", "stdout")
+
+    def lines(mod):
+        mod.reset_logging_config()
+        try:
+            mod.error("bad chunk %d", 3)
+            mod.warn("slow path")
+            mod.info("%s(%s)", "call", "n=2")
+            mod.debug("detail %r", b"x")
+        finally:
+            mod.reset_logging_config()
+        return [re.sub(r"^\[\S+ \S+ \S+ ", "[", ln)
+                for ln in capsys.readouterr().out.splitlines()]
+
+    ours, ref = lines(tlog), lines(ref_logging)
+    assert ours == ref
+    assert len(ours) == level
+    if level == 4:
+        assert ours == ["[ERROR] bad chunk 3", "[WARN] slow path", "[INFO] call(n=2)",
+                        "[DEBUG] detail b'x'"]
 
 
 def test_api_call_logging(monkeypatch, capsys):
@@ -250,7 +311,8 @@ def test_import_leaves_jax_and_reference_out():
             "tpucomp_torch.formats.deflate, tpucomp_torch.formats.gzip, "
             "tpucomp_torch.ops.cuda.huffman, tpucomp_torch.ops.cuda.deflate_decode, "
             "tpucomp_torch.ops.cuda.deflate_encode, tpucomp_torch.formats.zstd, "
-            "tpucomp_torch.ops.cuda.zstd_decode, "
+            "tpucomp_torch.ops.cuda.zstd_decode, tpucomp_torch.formats.gdeflate, "
+            "tpucomp_torch.ops.cuda.gdeflate_vdecode, tpucomp_torch.ops.cuda.gdeflate_encode, "
             "tpucomp_torch.manager, tpucomp_torch.utils.synth, tpucomp_torch.interop.cpu\n"
             "tpucomp_torch.batched.formats()\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tpucomp')]\n"

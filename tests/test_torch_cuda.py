@@ -18,6 +18,7 @@ from tpucomp_torch.chunk import ChunkBatch
 from tpucomp_torch.constants import Status
 from tpucomp_torch.formats import crc32
 from tpucomp_torch.formats import deflate as fdeflate
+from tpucomp_torch.formats import gdeflate as fgdeflate
 from tpucomp_torch.formats import gzip as fgzip
 from tpucomp_torch.formats import lz4 as flz4
 from tpucomp_torch.formats import snappy as fsnappy
@@ -25,8 +26,9 @@ from tpucomp_torch.formats import zstd as fzstd
 from tpucomp_torch.interop import cpu as interop
 from tpucomp_torch.manager import ChecksumPolicy, Manager, create_manager
 from tpucomp_torch.ops import match
-from tpucomp_torch.ops.cuda import (deflate_decode, deflate_encode, lz4_decode2, lz4_encode2,
-                                    snappy_decode, snappy_encode2, zstd_decode, zstd_encode)
+from tpucomp_torch.ops.cuda import (deflate_decode, deflate_encode, gdeflate_encode,
+                                    gdeflate_vdecode, lz4_decode2, lz4_encode2, snappy_decode,
+                                    snappy_encode2, zstd_decode, zstd_encode)
 from tpucomp_torch.utils import synth
 
 pytestmark = pytest.mark.cuda
@@ -171,10 +173,10 @@ def test_crc32_on_card_equals_cpu(card):
                        crc32.crc32_batch(cb.data, cb.sizes))
 
 
-@pytest.mark.parametrize("fmt", ["lz4", "snappy", "deflate", "zstd"])
+@pytest.mark.parametrize("fmt", ["lz4", "snappy", "deflate", "zstd", "gdeflate"])
 def test_manager_on_card(card, fmt):
     buf = synth.mixed_corpus(1 << 20, seed=10).tobytes()
-    opts = fdeflate.DeflateOpts(1) if fmt == "deflate" else None
+    opts = {"deflate": fdeflate.DeflateOpts(1), "gdeflate": fgdeflate.GdeflateOpts(1)}.get(fmt)
     mgr = Manager(fmt, 65536, opts, checksum_policy=ChecksumPolicy.COMPUTE_AND_VERIFY)
     frame = mgr.compress(buf)                       # device=None: the card
     assert frame.is_cuda
@@ -405,3 +407,91 @@ def test_zstd_compress_on_card_read_by_libzstd(card):
     assert (dst == Status.SUCCESS).all() and dec.to_bytes() == buf
     with pytest.raises(NotImplementedError, match="A.6"):
         batched.compress("zstd", ChunkBatch.from_bytes(buf[:200000], 131072))
+
+
+# ---------------------------------------------------------------- gdeflate ---
+
+def _gdeflate_rows() -> ChunkBatch:
+    """64 KiB rows: corpus heads, a row with distances above 49152, edges."""
+    cap = 65536
+    rng = np.random.default_rng(3)
+    seg = bytes(rng.integers(0, 256, 40_000, dtype=np.uint8))
+    raws = [synth.mixed_corpus(cap + 64, seed=3)[:cap].tobytes(),
+            synth.mortgage_like(cap, seed=4).tobytes(),
+            seg + b"\x00" * 12_000 + seg[:12_000], b"", b"x", b"\x00" * cap,
+            b"ab" * 1200, bytes(rng.integers(0, 256, 700, dtype=np.uint8))]
+    return ChunkBatch.from_chunks(raws, cap, device="cpu")
+
+
+@pytest.mark.parametrize("algo", [0, 1, 2])
+def test_gdeflate_walk_kernels_equal_plain(card, algo):
+    """Rows 16-17: the hist walk and the fixed/emit lane walks, then the
+    whole encode through ``batched``."""
+    cb = _gdeflate_rows()
+    d, s = cb.data.to(card), cb.sizes.to(card)
+    cands = None if algo == 2 else match.candidates2(cb.data, cb.sizes)
+    gc = None if cands is None else [c.to(card) for c in cands]
+    if algo == 0:
+        assert _equal(gdeflate_encode.fixed_kernel(d, s, gc),
+                      gdeflate_encode.fixed_plain(cb.data, cb.sizes, cands))
+    else:
+        hist = gdeflate_encode.hist_plain(cb.data, cb.sizes, cands)
+        assert _equal(gdeflate_encode.hist_kernel(d, s, gc), hist)
+        tab = gdeflate_encode.dyn_tables_gd(*hist)
+        assert _equal(gdeflate_encode.dyn_tables_gd(*[h.to(card) for h in hist]), tab)
+        assert _equal(gdeflate_encode.emit_kernel(d, s, gc, tab[0].to(card)),
+                      gdeflate_encode.emit_plain(cb.data, cb.sizes, cands, tab[0]))
+    opts = fgdeflate.GdeflateOpts(algo)
+    for oc in (fgdeflate.max_compressed_chunk_size(65536), 4096):
+        got, gst = batched.compress("gdeflate", ChunkBatch(d, s), opts, oc)
+        want, wst = batched.compress("gdeflate", cb, opts, oc)
+        assert _equal((got.data, got.sizes, gst), (want.data, want.sizes, wst))
+
+
+@pytest.mark.parametrize("out_cap", [65536, 1000])
+def test_gdeflate_decode_kernels_equal_plain(card, out_cap):
+    """Rows 13-14: the parse (tables row, tokens, sp, err) and the replay,
+    then the whole decode, on the port's tiles of every algo and corrupt
+    tiles."""
+    cb = _gdeflate_rows()
+    oc = fgdeflate.max_compressed_chunk_size(65536)
+    tiles = []
+    for algo in (0, 1, 2):
+        comp, _ = batched.compress("gdeflate", cb, fgdeflate.GdeflateOpts(algo), oc)
+        tiles += comp.chunk_list()
+    good = tiles[8]
+    rng = np.random.default_rng(out_cap)
+    tiles += [good[:k] for k in (24, 80, len(good) // 2)]
+    for _ in range(6):
+        b = bytearray(good)
+        b[rng.integers(0, len(good))] ^= 1 << rng.integers(0, 8)
+        tiles.append(bytes(b))
+    tiles += [good[:1] + b"\x02" + good[2:], b"\x03" + bytes(16), b""]
+    tc = ChunkBatch.from_chunks(tiles, oc, device="cpu")
+    c, s = tc.data.to(card), tc.sizes.to(card)
+    parse = gdeflate_vdecode.parse_plain(tc.data, tc.sizes, out_cap)
+    assert _equal(gdeflate_vdecode.parse_kernel(c, s, out_cap), parse)
+    n = torch.minimum(parse[0][:, 1], torch.tensor(parse[1].shape[1], dtype=torch.int32))
+    assert _equal(gdeflate_vdecode.exec_kernel(parse[1].to(card), n.to(card), out_cap),
+                  gdeflate_vdecode.exec_plain(parse[1], n, out_cap))
+    before = [gdeflate_vdecode.parse_kernel.launches, gdeflate_vdecode.exec_kernel.launches]
+    got = batched.decompress("gdeflate", ChunkBatch(c, s), out_cap)
+    torch.cuda.synchronize()
+    assert [gdeflate_vdecode.parse_kernel.launches,
+            gdeflate_vdecode.exec_kernel.launches] == [b + 1 for b in before]
+    want = batched.decompress("gdeflate", tc, out_cap)
+    assert _equal((got[0].data, got[0].sizes, got[1]), (want[0].data, want[0].sizes, want[1]))
+
+
+def test_gdeflate_tables_on_card_equal_cpu(card):
+    """``tile_tables`` and the schedule's torch ops on the card, against the
+    CPU, and the parse kernel's tables row against ``tile_tables``."""
+    cb = _gdeflate_rows()
+    comp, _ = batched.compress("gdeflate", cb, fgdeflate.GdeflateOpts(1))
+    got = fgdeflate.tile_tables(comp.data.to(card))
+    want = fgdeflate.tile_tables(comp.data)
+    flat = [x for g in zip(got, want) for x in ((g,) if not isinstance(g[0], tuple)
+                                                 else tuple(zip(*g)))]
+    assert all(torch.equal(a.cpu(), b) for a, b in flat)
+    tabs = gdeflate_vdecode.parse_kernel(comp.data.to(card), comp.sizes.to(card), 65536)[0]
+    assert torch.equal(tabs.cpu(), gdeflate_vdecode._table_rows(comp.data))

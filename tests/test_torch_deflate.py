@@ -290,6 +290,9 @@ def ref():
             jnp.asarray(llh), jnp.asarray(dh))]
     gz = ChunkBatch.from_chunks(list(GZIP.values()), 4096, device="cpu")
     res["gzip_in"] = (gz.data.numpy(), gz.sizes.numpy())
+    # the port's frame outside the backend variables below: the port reads
+    # them too, and its "pallas" (its kernels) needs a card
+    port_frame = _port_manager().compress(MANAGER_DATA).numpy().tobytes()
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(ref_crc32, "crc32_chunk", _host_crc32_chunk)
         mp.setattr(ref_crc32, "crc32_batch", _host_crc32_batch)
@@ -301,7 +304,6 @@ def ref():
             "deflate", MANAGER_CHUNK, opts=ref_fdeflate.DeflateOpts(1),
             checksum_policy=int(ChecksumPolicy.COMPUTE_AND_VERIFY)).compress(
                 MANAGER_DATA)).tobytes()
-        port_frame = _port_manager().compress(MANAGER_DATA).numpy().tobytes()
         m = ref_manager.create_manager(port_frame)
         cfg = m.configure_decompression(port_frame)
         res["ref_reads_port"] = (np.asarray(m.decompress(port_frame, cfg)).tobytes(),

@@ -70,15 +70,17 @@ def results():
                                                     jnp.asarray(crc_sizes))),
                    crc32.crc32_batch(torch.from_numpy(crc_in),
                                      torch.from_numpy(crc_sizes)).numpy())}
+    # the port's frames outside the backend variables below: the port reads
+    # them too, and its "pallas" (its kernels) needs a card
+    for name, (fmt, policy) in FRAMES.items():
+        res[name] = {"port_frame": _port(fmt, policy).compress(DATA).numpy().tobytes()}
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("TPUCOMP_DECODE_BACKEND", "pallas")
         mp.setenv("TPUCOMP_ENCODE_BACKEND", "pallas")
         mp.setattr(ref_crc32, "crc32_batch", _host_crc32)
         for name, (fmt, policy) in FRAMES.items():
-            ref_frame = np.asarray(ref_manager.Manager(
+            res[name]["ref_frame"] = np.asarray(ref_manager.Manager(
                 fmt, CHUNK, checksum_policy=int(policy)).compress(DATA)).tobytes()
-            port_frame = _port(fmt, policy).compress(DATA).numpy().tobytes()
-            res[name] = {"ref_frame": ref_frame, "port_frame": port_frame}
         # the reference reads the port's snappy frame, whole and truncated
         frames = res["snappy_checksums"]
         for key, frame in (("ref_reads_port", frames["port_frame"]),
@@ -108,6 +110,18 @@ def test_crc32_ignores_bytes_past_size(cap):
     assert got.dtype == torch.int64
     assert got.tolist() == [binascii.crc32(data[i, :s].tobytes())
                             for i, s in enumerate(sizes)]
+
+
+@pytest.mark.parametrize("cap", [1, 5, 4097, 65536])
+def test_crc32_chunk_equals_binascii(cap):
+    """The single-chunk CRC32 (``tpucomp.formats.crc32.crc32_chunk``; that
+    module's tests hold it to ``binascii``) on one row, sizes 0 to the row."""
+    row = np.random.default_rng(cap).integers(0, 256, cap, dtype=np.uint8)
+    for size in sorted({0, 1, cap // 2, cap}):
+        got = crc32.crc32_chunk(torch.from_numpy(row), size)
+        assert got.dim() == 0 and int(got) == binascii.crc32(row[:size].tobytes())
+    got = crc32.crc32_chunk(torch.from_numpy(row), torch.tensor(cap, dtype=torch.int32))
+    assert int(got) == binascii.crc32(row.tobytes())
 
 
 # ----------------------------------------------------------------- frames ---
@@ -256,6 +270,22 @@ def test_unported_formats_and_default_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Manager("lz4")
+
+
+@pytest.mark.parametrize("kind", ["encode", "decode"])
+def test_backend_environment_steers_the_manager(monkeypatch, kind):
+    """The Manager resolves its codec with ``backend="auto"``, so the
+    reference's variables steer it: ``pallas`` (the kernels) needs a card."""
+    frame = _port("lz4").compress(DATA[:5000])
+    monkeypatch.setenv(f"TPUCOMP_{kind.upper()}_BACKEND", "pallas")
+    with pytest.raises(ValueError, match="CUDA"):
+        if kind == "encode":
+            _port("lz4").compress(DATA[:5000])
+        else:
+            _port("lz4").decompress(frame)
+    monkeypatch.setenv(f"TPUCOMP_{kind.upper()}_BACKEND", "plain")
+    assert bytes(_port("lz4").decompress(_port("lz4").compress(DATA[:5000])).numpy()) \
+        == DATA[:5000]
 
 
 def test_bucket_chunk_cap_equals_reference():

@@ -15,7 +15,8 @@ C function families (``doc/lowlevel_c_quickstart.md:32-137``).
 ``backend`` selects the implementation of a call:
 
 * ``"auto"`` — the Hopper kernel for CUDA tensors, the plain version for CPU
-  tensors;
+  tensors; ``TPUCOMP_ENCODE_BACKEND`` / ``TPUCOMP_DECODE_BACKEND`` override it
+  (the reference's variables; their value ``"pallas"`` means ``"kernel"``);
 * ``"kernel"`` — the Hopper kernel (the reference's ``"pallas"``); raises for
   CPU tensors;
 * ``"plain"`` — the plain version, on any device (for tests and checks);
@@ -25,6 +26,7 @@ C function families (``doc/lowlevel_c_quickstart.md:32-137``).
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Callable
 
 import torch
@@ -148,9 +150,15 @@ def _input_violations(fmt: str, spec: CodecSpec, sizes: torch.Tensor,
     return v.to(torch.int32)
 
 
+_ENV_BACKEND = {"encoder": "TPUCOMP_ENCODE_BACKEND", "decoder": "TPUCOMP_DECODE_BACKEND"}
+
+
 def _impl(fmt: str, backend: str, on_cuda: bool, kernels: dict, plain: Callable,
           kind: str) -> Callable:
     """Resolve the implementation for ``backend`` (see the module docstring)."""
+    if backend == "auto":
+        backend = os.environ.get(_ENV_BACKEND[kind], "auto")
+        backend = "kernel" if backend == "pallas" else backend
     if backend == "auto":
         backend = "kernel" if on_cuda and fmt in kernels else "plain"
     if backend == "kernel":

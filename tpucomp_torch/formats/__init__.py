@@ -1,7 +1,8 @@
 """Format codecs registered with :mod:`tpucomp_torch.batched`.
 
 Port of :mod:`tpucomp.formats`.  LZ4, Snappy, Deflate, gzip (decompression
-only) and Zstandard (compression of chunks up to 64 KiB) are ported so far
+only), Zstandard (compression of chunks up to 64 KiB) and GDeflate are ported
+so far
 (and the CRC32 of :mod:`.crc32`, which registers no codec); the other
 formats follow in the order of ``ROADMAP.md``.
 """
@@ -19,10 +20,11 @@ def register_all() -> None:
 
     from tpucomp_torch import batched
     from tpucomp_torch.batched import CodecSpec
-    from tpucomp_torch.formats import deflate, gzip, lz4, snappy, zstd
-    from tpucomp_torch.ops.cuda import (deflate_decode, deflate_encode, lz4_decode2,
-                                        lz4_encode2, snappy_decode, snappy_encode2,
-                                        zstd_decode, zstd_encode)
+    from tpucomp_torch.formats import deflate, gdeflate, gzip, lz4, snappy, zstd
+    from tpucomp_torch.ops.cuda import (deflate_decode, deflate_encode, gdeflate_encode,
+                                        gdeflate_vdecode, lz4_decode2, lz4_encode2,
+                                        snappy_decode, snappy_encode2, zstd_decode,
+                                        zstd_encode)
 
     batched.register(CodecSpec(
         name="lz4",
@@ -73,4 +75,14 @@ def register_all() -> None:
         max_compressed_chunk_size=zstd.max_compressed_chunk_size,
         default_opts=zstd.DEFAULT_OPTS,
         get_decompress_size=zstd.get_decompress_size,
+    ))
+    batched.register(CodecSpec(
+        name="gdeflate",
+        # the portable entries are the kernels' plain versions until the XLA
+        # program of tpucomp/formats/gdeflate.py is ported (ROADMAP A.6)
+        compress_batch=lambda d, s, o, c: gdeflate_encode.compress_algo(d, s, o, c, plain=True),
+        decompress_batch=gdeflate_vdecode.decompress_batch_plain,
+        max_compressed_chunk_size=gdeflate.max_compressed_chunk_size,
+        default_opts=gdeflate.DEFAULT_OPTS,
+        get_decompress_size=gdeflate.get_decompress_size,
     ))

@@ -137,3 +137,11 @@ def crc32_batch(data: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
     for j in range(digits):
         c = _apply_t(inv[j], c, ((kpad >> (8 * j)) & 0xFF) * 1024)
     return c ^ 0xFFFFFFFF
+
+
+def crc32_chunk(data: torch.Tensor, size) -> torch.Tensor:
+    """CRC32 of ``data[:size]`` for one chunk ``data uint8[cap]`` (the
+    reference's single-chunk form): :func:`crc32_batch` on a batch of one,
+    with the same tables.  Returns an ``int64`` scalar holding the uint32."""
+    size = torch.as_tensor(size, device=data.device).reshape(1)
+    return crc32_batch(data.reshape(1, -1), size)[0]

@@ -7,6 +7,10 @@ versions); the reference's log-depth XLA program (``_walk_blocks``,
 ``decode_chunk``, ``encode_chunk``, ``get_decompress_size``) is not ported
 yet (``ROADMAP.md``, queue A).
 
+:func:`canonical` and :func:`decode_sym` are the reference's canonical
+decode tables and range-compare symbol decoder (``tpucomp/formats/deflate.py:
+90-142``), which GDeflate's tile decoder uses.
+
 The helpers that build dynamic Huffman tables (:func:`huff_lengths`,
 :func:`assign_codes`, :func:`rev_bits`) are torch ops batched over a leading
 chunk dimension, in int32 as the reference runs them; ties between equal
@@ -58,6 +62,66 @@ def max_compressed_chunk_size(max_chunk_bytes: int,
     rounded up to a multiple of 1024 (the reference's value)."""
     n = max_chunk_bytes + max_chunk_bytes // 2 + 64
     return (n + 1023) & ~1023
+
+
+# --- canonical decode tables and the range-compare decoder (torch ops over B) ---------
+
+def canonical(lens: torch.Tensor, nsym: int):
+    """Canonical decode tables from ``lens int32[B, nsym]`` (0 = unused) ->
+    ``(count, first, offset int32[B, 16], sym_of_rank int32[B, nsym], valid
+    bool[B])`` (``tpucomp/formats/deflate.py:90-120``): MSB-first codes per
+    RFC 1951 3.2.2, ``valid`` when the Kraft sum is at most ``2^15`` (an
+    incomplete code is valid).  As the reference: a length above 15 counts
+    as 15 with rank 0 in its length, and where two symbols land on one rank
+    the later one stays.
+    """
+    i32 = torch.int32
+    B = lens.shape[0]
+    dev = lens.device
+    lens = lens.to(i32)
+    lc = lens.clamp(0, MAX_BITS)
+    used = lens > 0
+    count = torch.zeros((B, MAX_BITS + 1), dtype=i32, device=dev)
+    count.scatter_add_(1, torch.where(used, lc, 0).to(torch.int64), used.to(i32))
+    first = torch.zeros_like(count)
+    code = torch.zeros(B, dtype=i32, device=dev)
+    kraft = torch.zeros(B, dtype=i32, device=dev)
+    for l in range(1, MAX_BITS + 1):
+        code = (code + count[:, l - 1]) << 1
+        first[:, l] = code
+        kraft = kraft + (count[:, l] << (MAX_BITS - l))
+    offset = torch.cumsum(count, dim=1, dtype=i32) - count
+    rank = torch.gather(offset, 1, lc.to(torch.int64))
+    for l in range(1, MAX_BITS + 1):
+        is_l = lens == l
+        rank = rank + torch.where(is_l, torch.cumsum(is_l.to(i32), dim=1, dtype=i32) - 1, 0)
+    tgt = torch.where(used, rank.clamp(0, nsym - 1), nsym).to(torch.int64)
+    sym_ids = torch.arange(nsym, dtype=i32, device=dev).expand(B, nsym)
+    sor = torch.zeros((B, nsym + 1), dtype=i32, device=dev)
+    sor.scatter_reduce_(1, tgt, sym_ids, reduce="amax")
+    return count, first, offset, sor[:, :nsym], kraft <= (1 << MAX_BITS)
+
+
+def decode_sym(rev15: torch.Tensor, count, first, offset, sym_of_rank):
+    """Decode the code at the front of the bit-reversed 15-bit peek
+    ``rev15 int32[B, ...]`` against ``canonical``'s tables -> ``(sym, length,
+    found)`` of ``rev15``'s shape (``tpucomp/formats/deflate.py:123-142``).
+    Each length 1..15 is a range compare; the shortest that matches wins.
+    No match gives symbol 0, length 0 and ``found`` False.
+    """
+    B = rev15.shape[0]
+    view = (B,) + (1,) * (rev15.dim() - 1) + (MAX_BITS,)
+    ls = torch.arange(1, MAX_BITS + 1, dtype=rev15.dtype, device=rev15.device)
+    code = rev15[..., None] >> (MAX_BITS - ls)
+    f = first[:, 1:].reshape(view)
+    in_range = (code >= f) & (code - f < count[:, 1:].reshape(view))
+    found = in_range.any(dim=-1)
+    k = in_range.to(torch.int8).argmax(dim=-1, keepdim=True)       # the shortest match
+    idx = torch.gather(offset[:, 1:].reshape(view) + code - f, -1, k).squeeze(-1)
+    idx = idx.clamp(0, sym_of_rank.shape[1] - 1).reshape(B, -1).to(torch.int64)
+    sym = torch.gather(sym_of_rank, 1, idx).reshape(rev15.shape)
+    length = (k.squeeze(-1) + 1).to(rev15.dtype)
+    return torch.where(found, sym, 0), torch.where(found, length, 0), found
 
 
 # --- dynamic-Huffman code lengths (torch ops over B chunks) --------------------------

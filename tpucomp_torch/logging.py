@@ -53,6 +53,22 @@ def log(level: int, msg: str, *args: Any) -> None:
     print(f"[tpucomp_torch {ts} {_LEVEL_NAMES.get(level, level)}] {msg}", file=stream)
 
 
+def error(msg: str, *args: Any) -> None:
+    log(LEVEL_ERROR, msg, *args)
+
+
+def warn(msg: str, *args: Any) -> None:
+    log(LEVEL_WARN, msg, *args)
+
+
+def info(msg: str, *args: Any) -> None:
+    log(LEVEL_INFO, msg, *args)
+
+
+def debug(msg: str, *args: Any) -> None:
+    log(LEVEL_DEBUG, msg, *args)
+
+
 def api_call(name: str, **kwargs: Any) -> None:
     """Log a low-level API call at INFO level (reference logs every LLIF call at 3)."""
     cfg_level, _ = _config()

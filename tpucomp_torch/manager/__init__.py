@@ -93,7 +93,7 @@ def _opts_to_blob(fmt: str, opts: Any) -> bytes:
     blob = bytearray(16)
     if fmt == "lz4":
         blob[0] = int(opts.data_type)
-    elif fmt == "deflate":
+    elif fmt in ("deflate", "gdeflate"):
         blob[0] = opts.algo
     return bytes(blob)   # snappy: no options, 16 zero bytes
 
@@ -105,6 +105,9 @@ def _opts_from_blob(fmt: str, blob: bytes) -> Any:
     if fmt == "deflate":
         from tpucomp_torch.formats.deflate import DeflateOpts
         return DeflateOpts(algo=blob[0])
+    if fmt == "gdeflate":
+        from tpucomp_torch.formats.gdeflate import GdeflateOpts
+        return GdeflateOpts(algo=blob[0])
     return _batched._get(fmt).default_opts
 
 

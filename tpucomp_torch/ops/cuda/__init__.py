@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels — the kernel layer of the port.
 
 Port of :mod:`tpucomp.ops.pallas` (``tpucomp/ops/pallas/__init__.py:44-56,
-154-165,183-281``).  Each kernel is CUDA C++ for ``sm_90a`` under ``csrc/``,
+85-97,154-165,183-281``).  Each kernel is CUDA C++ for ``sm_90a`` under ``csrc/``,
 built at first use by :mod:`._build` and called through ctypes; beside it, in
 the same module, sits its plain version with the same signature.
 
@@ -22,6 +22,12 @@ the same module, sits its plain version with the same signature.
 - :mod:`.zstd_encode` — the Zstandard walk over :func:`tpucomp_torch.ops
   .match.candidates2` in modes hist and full (``csrc/zstd_encode.cu``), with
   the FSE and Huffman tables in torch ops; chunks up to 64 KiB.
+- :mod:`.gdeflate_vdecode` — the GDeflate 32-lane tile parse and the token
+  replay (``csrc/gdeflate_vdecode.cu``).
+- :mod:`.gdeflate_encode` — the GDeflate walk over :func:`tpucomp_torch.ops
+  .match.candidates2` in modes fixed, hist and emit, emitting into 32 lane
+  bit buffers (``csrc/gdeflate_encode.cu``), with the refill schedule, the
+  tile assembly and the dynamic tables in torch ops.
 - ``csrc/bytecopy.cuh`` — the warp byte-copy helpers they share.
 
 ``KERNEL_DECODERS`` / ``KERNEL_ENCODERS`` map a format name to the kernel
@@ -87,12 +93,25 @@ def _deflate_compress_batch(data, sizes, opts, out_cap):
     return deflate_encode.compress_algo(data, sizes, opts, out_cap)
 
 
+def _gdeflate_decompress_batch(comp, comp_sizes, out_cap):
+    from tpucomp_torch.ops.cuda import gdeflate_vdecode
+    return gdeflate_vdecode.decompress_batch(comp, comp_sizes, out_cap)
+
+
+def _gdeflate_compress_batch(data, sizes, opts, out_cap):
+    """The algo ladder: 0 fixed tables, 1 dynamic tables, 2 entropy only
+    (``ops/pallas/__init__.py:235-252``)."""
+    from tpucomp_torch.ops.cuda import gdeflate_encode
+    return gdeflate_encode.compress_algo(data, sizes, opts, out_cap)
+
+
 KERNEL_DECODERS = {
     "lz4": _lz4_decompress_batch,
     "snappy": _snappy_decompress_batch,
     "deflate": _deflate_decompress_batch,
     "gzip": _gzip_decompress_batch,
     "zstd": _zstd_decompress_batch,
+    "gdeflate": _gdeflate_decompress_batch,
 }
 
 KERNEL_ENCODERS = {
@@ -100,4 +119,5 @@ KERNEL_ENCODERS = {
     "snappy": _snappy_compress_batch,
     "deflate": _deflate_compress_batch,
     "zstd": _zstd_compress_batch,
+    "gdeflate": _gdeflate_compress_batch,
 }
