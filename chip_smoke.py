@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of tpucomp_torch: batched LZ4, Snappy, Deflate (algos
-0, 1, 2), gzip decompress, Zstandard and GDeflate (algos 0, 1, 2), and the
-Manager frame path with CRC32 checksums, on one NVIDIA GPU.
+0, 1, 2), gzip decompress, Zstandard, GDeflate (algos 0, 1, 2) and ANS, and
+the Manager frame path with CRC32 checksums, on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``:
 
@@ -11,10 +11,10 @@ Phases, each printing its own lines; any failure ends the run with a non-zero
 exit code and no result line:
 
 1. device: name, count, and ``nvidia-smi``'s name and power limit;
-2. build: the ten CUDA libraries from ``tpucomp_torch/ops/cuda/csrc`` (one
+2. build: the twelve CUDA libraries from ``tpucomp_torch/ops/cuda/csrc`` (one
    ``nvcc`` each, in parallel), with their ``-Xptxas -v`` register/shared-memory
    lines;
-3. kernel vs plain: each of the sixteen kernels on the card against its plain
+3. kernel vs plain: each of the twenty kernels on the card against its plain
    version on a host copy of the same inputs (<= 8 chunks per corpus at the
    main path's 64 KiB shape, edge and hand-made streams, truncated and
    bit-flipped streams, an out_cap that is too small; for Deflate, zlib
@@ -34,8 +34,13 @@ exit code and no result line:
    card against the CPU (each plain walk runs once; its lanes are assembled
    at both out_caps), then the parse and the replay on those tiles,
    truncated, bit-flipped and future-version tiles and the three tiles of
-   tests/golden/gdeflate.bin, at a 64 KiB and a too-small out_cap); exact
-   equality of bytes, sizes, statuses, tokens and table words;
+   tests/golden/gdeflate.bin, at a 64 KiB and a too-small out_cap; for ANS,
+   both encode walks (words, emits, final states, word counts) and frames on
+   the head chunks, the edge rows of tests/test_pallas_ans.py and a batch of
+   5, at out_cap = bound and 4096, with ``tables_for`` on the card against
+   the CPU, and both decoders on those frames, corrupt frames, rows cut
+   below the header, out_cap 1000 and tests/golden/ans.bin); exact equality
+   of bytes, sizes, statuses, tokens and table words;
 4. full width: two 64 MiB corpora from seed 42 (``mortgage_like``,
    ``mixed_corpus``) cut into 1024 chunks of 64 KiB, one batch each, through
    ``batched.compress`` / ``batched.decompress`` (backend "auto") for LZ4,
@@ -45,14 +50,15 @@ exit code and no result line:
    ``batched.compress("zstd")`` (rows 20-21, exact entropy) with its speed
    rung (``exact_entropy=False``), ``batched.compress`` /
    ``batched.decompress("gdeflate")`` in algos 0, 1, 2 (rows 13-14, 16-17;
-   tests/gdeflate_pyref.py reads three tiles of each), with the launch
-   counts of that run,
+   tests/gdeflate_pyref.py reads three tiles of each), ``batched.compress`` /
+   ``batched.decompress("ans")`` (rows 25, 23) with rows 24 and 22 through
+   their own wrappers on the same chunks, with the launch counts of that run,
    bit-exact round trips, the decoders reading streams staged by liblz4 /
    libsnappy / zlib level 6 / gzip / libzstd, liblz4, libsnappy, zlib,
    libdeflate and libzstd reading the port's frames, and CUDA-event timings;
 5. manager: each corpus as one 64 MiB buffer through ``Manager(fmt, 65536,
-   COMPUTE_AND_VERIFY)`` for LZ4, Snappy, Deflate (algo 1), Zstandard and
-   GDeflate (algo 1),
+   COMPUTE_AND_VERIFY)`` for LZ4, Snappy, Deflate (algo 1), Zstandard,
+   GDeflate (algo 1) and ANS,
    ``create_manager`` and
    ``decompress`` (bit-exact, ``SUCCESS``), a flipped payload byte
    (``ERROR_BAD_CHECKSUM``), the frame without its CRC tables through a
@@ -102,6 +108,10 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "gdeflate_exec": ("gdeflate_vdecode.cu", "tpucomp/ops/pallas/gdeflate_vdecode.py:225"),
     "gdeflate_encode_hist": ("gdeflate_encode.cu", "tpucomp/ops/pallas/gdeflate_encode.py:54"),
     "gdeflate_encode": ("gdeflate_encode.cu", "tpucomp/ops/pallas/gdeflate_encode.py:54"),
+    "ans_decode": ("ans_decode.cu", "tpucomp/ops/pallas/ans_decode.py:147"),
+    "ans_decode_wide": ("ans_decode.cu", "tpucomp/ops/pallas/ans_decode.py:285"),
+    "ans_encode": ("ans_encode.cu", "tpucomp/ops/pallas/ans_encode.py:119"),
+    "ans_encode_wide": ("ans_encode.cu", "tpucomp/ops/pallas/ans_encode.py:196"),
 }
 ALGOS = (0, 1, 2)
 
@@ -175,6 +185,7 @@ def main() -> int:
     from tpucomp_torch import batched
     from tpucomp_torch.chunk import ChunkBatch
     from tpucomp_torch.constants import Status
+    from tpucomp_torch.formats import ans as fans
     from tpucomp_torch.formats import crc32
     from tpucomp_torch.formats import deflate as fdeflate
     from tpucomp_torch.formats import gdeflate as fgdeflate
@@ -185,10 +196,10 @@ def main() -> int:
     from tpucomp_torch.interop import cpu as interop
     from tpucomp_torch.manager import ChecksumPolicy, Manager, create_manager
     from tpucomp_torch.ops import match
-    from tpucomp_torch.ops.cuda import (_build, deflate_decode, deflate_encode,
-                                        gdeflate_encode, gdeflate_vdecode, lz4_decode2,
-                                        lz4_encode2, snappy_decode, snappy_encode2,
-                                        zstd_decode, zstd_encode)
+    from tpucomp_torch.ops.cuda import (_build, ans_decode, ans_encode, deflate_decode,
+                                        deflate_encode, gdeflate_encode, gdeflate_vdecode,
+                                        lz4_decode2, lz4_encode2, snappy_decode,
+                                        snappy_encode2, zstd_decode, zstd_encode)
     from tpucomp_torch.utils import synth
     sys.path.insert(0, str(HERE / "tests"))
     import gdeflate_pyref as pyref    # the format's serial Python codec (no JAX)
@@ -209,7 +220,11 @@ def main() -> int:
                 "gdeflate_exec": (gdeflate_vdecode.exec_kernel,),
                 "gdeflate_encode_hist": (gdeflate_encode.hist_kernel,),
                 # row 17: one kernel body in the modes fixed (algo 0) and emit
-                "gdeflate_encode": (gdeflate_encode.fixed_kernel, gdeflate_encode.emit_kernel)}
+                "gdeflate_encode": (gdeflate_encode.fixed_kernel, gdeflate_encode.emit_kernel),
+                "ans_decode": (ans_decode.decompress_batch,),
+                "ans_decode_wide": (ans_decode.decompress_batch_wide,),
+                "ans_encode": (ans_encode.walk_kernel,),
+                "ans_encode_wide": (ans_encode.walk_kernel_wide,)}
 
     def reset_counts() -> None:
         for fns in counters.values():
@@ -275,23 +290,35 @@ def main() -> int:
     max_err = {k: 0 for k in KERNELS}
     plain_ms = {k: 0.0 for k in KERNELS}
 
-    def compare(name, kernel_fn, plain_fn, args_cpu, label):
-        """Kernel on the card vs plain version on the host; returns the plain result."""
-        got = kernel_fn(*[a.to(dev) if torch.is_tensor(a) else a for a in args_cpu])
-        torch.cuda.synchronize()
+    def plain_once(names, fn, *args):
+        """The plain version once on the host, its time charged to each of ``names``."""
         t = time.perf_counter()
-        want = plain_fn(*args_cpu)
-        plain_ms[name] += (time.perf_counter() - t) * 1e3
+        want = fn(*args)
+        ms = (time.perf_counter() - t) * 1e3
+        for name in names:
+            plain_ms[name] += ms
+        return want
+
+    def against(name, got, want, label):
+        """Hold a kernel's outputs on the card against its plain version's."""
+        torch.cuda.synchronize()
         err = max(int((g.cpu().to(torch.int64) - w.to(torch.int64)).abs().max())
                   if g.numel() else 0 for g, w in zip(got, want))
         max_err[name] = max(max_err[name], err)
         same = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
         stats = (np.bincount(want[2].numpy(), minlength=16) if len(want) == 3
                  else np.zeros(16, np.int64))
-        print(f"[kernel=plain] {name} {label}: B={args_cpu[0].shape[0]} "
+        print(f"[kernel=plain] {name} {label}: B={want[0].shape[0]} "
               f"tolerance=exact equal={same} max_abs_err={err} statuses(ok/cannot/small)="
               f"{stats[0]}/{stats[12]}/{stats[15]}")
         check(same, f"{name} kernel differs from its plain version on {label}")
+
+    def compare(name, kernel_fn, plain_fn, args_cpu, label):
+        """Kernel on the card vs plain version on the host; returns the plain result."""
+        got = kernel_fn(*[a.to(dev) if torch.is_tensor(a) else a for a in args_cpu])
+        torch.cuda.synchronize()
+        want = plain_once((name,), plain_fn, *args_cpu)
+        against(name, got, want, label)
         return want
 
     def fuzz(good: bytes) -> list[bytes]:
@@ -617,6 +644,81 @@ def main() -> int:
 
     lap("3 gdeflate decode")
 
+    # ANS: the encode walk of rows 24-25 on the head chunks, the edge rows of
+    # tests/test_pallas_ans.py, all 256 symbols with most rare and a cut size
+    # (23 rows: a ragged wide block), and on 5 of them, at out_cap = bound
+    # and 4096; then the decoders of rows 22-23 on those frames, corrupt
+    # frames, rows cut below the header, out_cap 1000 and
+    # tests/golden/ans.bin.  Each plain version runs once per input and is
+    # held against both kernels.
+    acap = fans.max_compressed_chunk_size(CHUNK)
+    arng = np.random.default_rng(31)
+    aedge = [b"", b"x", b"\x00" * 3000, bytes(arng.integers(0, 4, 5000, dtype=np.uint8)),
+             bytes(arng.integers(0, 256, 3000, dtype=np.uint8)),
+             bytes(range(256)) + b"a" * 20000, head["mixed"][0]]
+    a_in = ChunkBatch.from_chunks(enc_rows + aedge, CHUNK, device="cpu")
+    a_in.sizes[-1] = 1000
+    a_five = ChunkBatch(a_in.data[-5:].clone(), a_in.sizes[-5:].clone())
+
+    enc_names = ("ans_encode", "ans_encode_wide")
+    walks = {"ans_encode": ans_encode.walk_kernel, "ans_encode_wide": ans_encode.walk_kernel_wide}
+    comps = {"ans_encode": ans_encode.compress_batch,
+             "ans_encode_wide": ans_encode.compress_batch_wide}
+    a_frames = []
+    for cb, label in ((a_in, f"{a_in.num_chunks} rows"), (a_five, "5 edge rows")):
+        freq, cum = fans.tables_for(cb.data, cb.sizes)
+        same_on_card(f"ANS tables_for ({label})",
+                     fans.tables_for(cb.data.to(dev), cb.sizes.to(dev)), (freq, cum))
+        walk = plain_once(enc_names, ans_encode.walk_plain, cb.data, cb.sizes, freq, cum)
+        for name in enc_names:
+            against(name, walks[name](cb.data.to(dev), cb.sizes.to(dev), freq.to(dev),
+                                      cum.to(dev)),
+                    walk, f"walk (words, emits, x_fin, wcount), {label}")
+        for cap in (acap, 4096):
+            want = fans.serialize_scan(cb.sizes, freq, walk[2], walk[3], walk[0], walk[1], cap)
+            for name in enc_names:
+                against(name, comps[name](cb.data.to(dev), cb.sizes.to(dev), cap), want,
+                        f"frames, {label}, out_cap {cap} ({int((want[2] == 0).sum())} fit)")
+            if cap == acap and cb is a_in:
+                a_frames = [want[0][i, :want[1][i]].numpy().tobytes()
+                            for i in range(cb.num_chunks)]
+    agood = a_frames[PHASE3_CHUNKS]             # the first mixed chunk
+    u32 = lambda v: int(v).to_bytes(4, "little")   # noqa: E731
+
+    def patched(at: int, value: bytes, frame: bytes = agood) -> bytes:
+        return frame[:at] + value + frame[at + len(value):]
+
+    ablob = (HERE / "tests" / "golden" / "ans.bin").read_bytes()
+    na = int(np.frombuffer(ablob[:4], np.int32)[0])
+    aoff = 4 + 4 * na + np.concatenate([[0], np.cumsum(np.frombuffer(ablob[4:4 + 4 * na],
+                                                                     np.int32))])
+    agold = [ablob[aoff[i]:aoff[i + 1]] for i in range(na)]
+    a_dec = (a_frames + fuzz(agood)
+             + [patched(0, b"\x5a"), patched(1, b"\x03"), patched(12, bytes([agood[12] ^ 0x55])),
+                patched(4, u32(CHUNK + 1)), patched(4, u32(0x80000010)),
+                patched(8, u32(5), patched(4, u32(0)))[:fans.HEADER_BYTES + 10], agood]
+             + agold)
+    ad_in = ChunkBatch.from_chunks(a_dec, acap, device="cpu")
+    ad_in.sizes[len(a_dec) - na - 1] -= 40      # a truncated size
+    dec_names = ("ans_decode", "ans_decode_wide")
+    decs = {"ans_decode": ans_decode.decompress_batch,
+            "ans_decode_wide": ans_decode.decompress_batch_wide}
+    for data, cap, label in ((ad_in.data, CHUNK, "64 KiB out_cap"),
+                             (ad_in.data, 1000, "out_cap 1000"),
+                             (ad_in.data[:, :1200].contiguous(), 1000,
+                              "rows cut to 1200 bytes, out_cap 1000")):
+        want = plain_once(dec_names, ans_decode.decompress_batch_plain, data, ad_in.sizes, cap)
+        for name in dec_names:
+            against(name, decs[name](data.to(dev), ad_in.sizes.to(dev), cap), want,
+                    f"{len(a_dec)} frames, {label}")
+        if cap == CHUNK:
+            a_ok = [want[0][i, :want[1][i]].numpy().tobytes() for i in range(len(a_dec))]
+            check(a_ok[:len(a_frames)] == a_in.chunk_list()
+                  and a_ok[-na:] == [graw[:gk], graw[gk:2 * gk], graw[2 * gk:]],
+                  "ANS: the port's frames or tests/golden/ans.bin do not decode")
+
+    lap("3 ans")
+
     # ------------------------------------------------------------ 4 full width
     batches, staged = {}, {}
     for name, raw in corpora.items():
@@ -641,7 +743,7 @@ def main() -> int:
     lap("4 staging")
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    results, dresults, dstaged, zresults, zenc, gresults = {}, {}, {}, {}, {}, {}
+    results, dresults, dstaged, zresults, zenc, gresults, aresults = {}, {}, {}, {}, {}, {}, {}
     for name, cb in batches.items():          # the main path, once
         for fmt in out_caps:
             comp, cst = batched.compress(fmt, cb)
@@ -665,6 +767,12 @@ def main() -> int:
         for algo in ALGOS:
             gcomp, gcst = batched.compress("gdeflate", cb, fgdeflate.GdeflateOpts(algo))
             gresults[name, algo] = (gcomp, gcst) + batched.decompress("gdeflate", gcomp, CHUNK)
+        # ANS through batched (rows 25 and 23), and the single-chunk wrappers
+        # (rows 24 and 22, the device-side API blocks) on the same chunks
+        acomp, acst = batched.compress("ans", cb)
+        aresults[name] = ((acomp, acst) + batched.decompress("ans", acomp, CHUNK)
+                          + ans_encode.compress_batch(cb.data, cb.sizes, acap)
+                          + ans_decode.decompress_batch(acomp.data, acomp.sizes, CHUNK))
     torch.cuda.synchronize()
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -950,13 +1058,60 @@ def main() -> int:
     del results, staged, dresults, dstaged, zresults, zenc, gresults
 
     lap("4 checks and timings, gdeflate")
+    for name, (comp, cst, dec, dst, sout, ssz, sst, sdec, sdsz, sdst) in aresults.items():
+        cb = batches[name]
+        B, sizes, raw_bytes = cb.num_chunks, cb.sizes, int(cb.total_bytes)
+        check(bool((cst == Status.SUCCESS).all()) and bool((dst == Status.SUCCESS).all()),
+              f"{name} ans: statuses")
+        check(torch.equal(dec.sizes, cb.sizes) and torch.equal(dec.data, cb.data),
+              f"{name} ans: round trip through the port's frames is not bit-exact")
+        check(torch.equal(sout, comp.data) and torch.equal(ssz, comp.sizes)
+              and torch.equal(sst, cst),
+              f"{name} ans: row 24's frames differ from row 25's")
+        check(torch.equal(sdec, dec.data) and torch.equal(sdsz, dec.sizes)
+              and torch.equal(sdst, dst), f"{name} ans: row 22's output differs from row 23's")
+        counts = np.stack([np.bincount(r, minlength=256)
+                           for r in cb.data.cpu().numpy()]).astype(np.float64)
+        p = counts / np.maximum(counts.sum(axis=1, keepdims=True), 1)
+        h0_bytes = float(-(counts * np.log2(np.where(p > 0, p, 1))).sum() / 8)
+        freq, cum = fans.tables_for(cb.data, sizes)
+        walk = ans_encode.walk_kernel_wide(cb.data, sizes, freq, cum)
+        comp_bytes = int(comp.total_bytes)
+        t = {k: time_ms(torch, fn) for k, fn in (
+            ("compress_ms", lambda: batched.compress("ans", cb)),
+            ("tables_for_ms", lambda: fans.tables_for(cb.data, sizes)),
+            ("walk_wide_ms", lambda: ans_encode.walk_kernel_wide(cb.data, sizes, freq, cum)),
+            ("walk_ms", lambda: ans_encode.walk_kernel(cb.data, sizes, freq, cum)),
+            ("serialize_scan_ms", lambda: fans.serialize_scan(sizes, freq, walk[2], walk[3],
+                                                              walk[0], walk[1], acap)),
+            ("decompress_ms", lambda: batched.decompress("ans", comp, CHUNK)),
+            ("decode_wide_ms", lambda: ans_decode.decompress_batch_wide(comp.data, comp.sizes,
+                                                                        CHUNK)),
+            ("decode_ms", lambda: ans_decode.decompress_batch(comp.data, comp.sizes, CHUNK)))}
+        kernel_ms["ans_encode"] += t["walk_ms"]
+        kernel_ms["ans_encode_wide"] += t["walk_wide_ms"]
+        kernel_ms["ans_decode"] += t["decode_ms"]
+        kernel_ms["ans_decode_wide"] += t["decode_wide_ms"]
+        for k in ("ans_encode", "ans_encode_wide"):
+            bound[k] += bytes_bound_ms(raw_bytes + 4 * B, comp_bytes + 8 * B)
+        for k in ("ans_decode", "ans_decode_wide"):
+            bound[k] += bytes_bound_ms(comp_bytes + 4 * B, B * CHUNK + 8 * B)
+        row = {"corpus": name, "format": "ans", "chunks": B, "raw_bytes": raw_bytes,
+               "ratio": raw_bytes / comp_bytes, "order0_entropy_ratio": raw_bytes / h0_bytes,
+               "stream_words": (comp_bytes - B * fans.HEADER_BYTES) // 2, **t,
+               "compress_GBps": raw_bytes / t["compress_ms"] / 1e6,
+               "decompress_GBps": raw_bytes / t["decompress_ms"] / 1e6}
+        print(f"[full] {json.dumps(row)}")
+    del aresults
+
+    lap("4 checks and timings, ans")
 
     # --------------------------------------------------------------- 5 manager
     verify = ChecksumPolicy.COMPUTE_AND_VERIFY
     bufs = {name: torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(dev)
             for name, raw in corpora.items()}
     mgr_opts = {"lz4": None, "snappy": None, "deflate": fdeflate.DeflateOpts(algo=1),
-                "zstd": None, "gdeflate": fgdeflate.GdeflateOpts(algo=1)}
+                "zstd": None, "gdeflate": fgdeflate.GdeflateOpts(algo=1), "ans": None}
     torch.cuda.synchronize()
     reset_counts()
     frames = {}
@@ -970,9 +1125,11 @@ def main() -> int:
     torch.cuda.synchronize()
     mgr_launches = read_counts()
     print(f"[manager] launches in the Manager-path run: {mgr_launches}")
-    # algo 1 runs the hist and emit walks, not the fixed ones; 64 KiB chunks take row 18
+    # algo 1 runs the hist and emit walks, not the fixed ones; 64 KiB chunks take row 18;
+    # ANS dispatches the wide wrappers (rows 23, 25)
     check(all(v > 0 for k, v in mgr_launches.items()
-              if k not in ("deflate_encode_fixed", "zstd_decode_big")),
+              if k not in ("deflate_encode_fixed", "zstd_decode_big", "ans_decode",
+                           "ans_encode")),
           f"a kernel was not launched on the Manager path: {mgr_launches}")
     for (name, fmt), (frame, mgr, cfg, out) in frames.items():
         buf = bufs[name]
@@ -1033,9 +1190,13 @@ def main() -> int:
           "1024 x 64 KiB and zstd_decode_big on 4 x 16 MiB libzstd-staged frames, "
           "zstd_encode_hist/zstd_encode in exact entropy, gdeflate_* in algo 1: "
           "gdeflate_encode is the emit mode, gdeflate_parse/exec read the port's algo-1 "
-          "tiles); launches: the batched main-path run (gdeflate_encode: modes fixed and "
-          "emit); plain_ms: the plain version on the phase-3 inputs (host); no PyTorch "
-          "call computes LZ4, Snappy, Deflate, Zstandard or GDeflate")
+          "tiles; ans_encode/_wide are the walk alone, bound by the raw bytes read and the "
+          "frames written, ans_decode/_wide read the port's frames); launches: the batched "
+          "main-path run (gdeflate_encode: modes fixed and emit; ans_encode and ans_decode "
+          "through their own wrappers in that run); plain_ms: the plain version on the "
+          "phase-3 inputs (host; each ANS plain version ran once for both of its kernels, "
+          "its time stands beside each); no PyTorch call computes LZ4, Snappy, Deflate, "
+          "Zstandard, GDeflate or rANS")
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

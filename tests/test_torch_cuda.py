@@ -16,6 +16,7 @@ import torch
 from tpucomp_torch import batched
 from tpucomp_torch.chunk import ChunkBatch
 from tpucomp_torch.constants import Status
+from tpucomp_torch.formats import ans as fans
 from tpucomp_torch.formats import crc32
 from tpucomp_torch.formats import deflate as fdeflate
 from tpucomp_torch.formats import gdeflate as fgdeflate
@@ -26,9 +27,9 @@ from tpucomp_torch.formats import zstd as fzstd
 from tpucomp_torch.interop import cpu as interop
 from tpucomp_torch.manager import ChecksumPolicy, Manager, create_manager
 from tpucomp_torch.ops import match
-from tpucomp_torch.ops.cuda import (deflate_decode, deflate_encode, gdeflate_encode,
-                                    gdeflate_vdecode, lz4_decode2, lz4_encode2, snappy_decode,
-                                    snappy_encode2, zstd_decode, zstd_encode)
+from tpucomp_torch.ops.cuda import (ans_decode, ans_encode, deflate_decode, deflate_encode,
+                                    gdeflate_encode, gdeflate_vdecode, lz4_decode2, lz4_encode2,
+                                    snappy_decode, snappy_encode2, zstd_decode, zstd_encode)
 from tpucomp_torch.utils import synth
 
 pytestmark = pytest.mark.cuda
@@ -173,7 +174,7 @@ def test_crc32_on_card_equals_cpu(card):
                        crc32.crc32_batch(cb.data, cb.sizes))
 
 
-@pytest.mark.parametrize("fmt", ["lz4", "snappy", "deflate", "zstd", "gdeflate"])
+@pytest.mark.parametrize("fmt", ["lz4", "snappy", "deflate", "zstd", "gdeflate", "ans"])
 def test_manager_on_card(card, fmt):
     buf = synth.mixed_corpus(1 << 20, seed=10).tobytes()
     opts = {"deflate": fdeflate.DeflateOpts(1), "gdeflate": fgdeflate.GdeflateOpts(1)}.get(fmt)
@@ -495,3 +496,76 @@ def test_gdeflate_tables_on_card_equal_cpu(card):
     assert all(torch.equal(a.cpu(), b) for a, b in flat)
     tabs = gdeflate_vdecode.parse_kernel(comp.data.to(card), comp.sizes.to(card), 65536)[0]
     assert torch.equal(tabs.cpu(), gdeflate_vdecode._table_rows(comp.data))
+
+
+def _ans_rows() -> ChunkBatch:
+    """Nine rows (a ragged group of eight): 64 KiB heads, a cut size, the
+    edge rows of tests/test_pallas_ans.py, all 256 symbols with most rare."""
+    rng = np.random.default_rng(31)
+    raws = [synth.mixed_corpus(65536, seed=42).tobytes()[:65536],
+            synth.mortgage_like(65536, seed=42).tobytes(), b"", b"x", b"\x00" * 3000,
+            bytes(rng.integers(0, 4, 5000, dtype=np.uint8)),
+            bytes(rng.integers(0, 256, 3000, dtype=np.uint8)),
+            bytes(range(256)) + b"a" * 20000, synth.runs(65536, mean_run=300, seed=3).tobytes()]
+    cb = ChunkBatch.from_chunks(raws, 65536, device="cpu")
+    cb.sizes[-1] = 1000
+    return cb
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_ans_encode_kernels_equal_plain(card, wide):
+    """Rows 24-25: the walk (words, emits, x_fin, wcount), then whole frames
+    at the bound and at a too-small out_cap."""
+    cb = _ans_rows()
+    d, s = cb.data.to(card), cb.sizes.to(card)
+    freq, cum = fans.tables_for(cb.data, cb.sizes)
+    assert _equal(fans.tables_for(d, s), (freq, cum))
+    walk = ans_encode.walk_kernel_wide if wide else ans_encode.walk_kernel
+    assert _equal(walk(d, s, freq.to(card), cum.to(card)),
+                  ans_encode.walk_plain(cb.data, cb.sizes, freq, cum))
+    comp = ans_encode.compress_batch_wide if wide else ans_encode.compress_batch
+    for oc in (fans.max_compressed_chunk_size(65536), 4096):
+        assert _equal(comp(d, s, oc), ans_encode.compress_batch_plain(cb.data, cb.sizes, oc))
+
+
+@pytest.mark.parametrize("out_cap", [65536, 1000])
+def test_ans_decode_kernels_equal_plain(card, out_cap):
+    """Rows 22-23 on the port's frames, truncated and flipped frames, bad
+    headers, and the same rows cut below the header."""
+    cb = _ans_rows()
+    bound = fans.max_compressed_chunk_size(65536)
+    comp = ans_encode.compress_batch_plain(cb.data, cb.sizes, bound)
+    frames = ChunkBatch(comp[0], comp[1]).chunk_list()
+    good = frames[0]
+    rng = np.random.default_rng(out_cap)
+    bad = []
+    for at, val in ((0, 0x5A), (1, 3), (12, good[12] ^ 0x55), (7, 0x80), (11, 0x80)):
+        b = bytearray(good)
+        b[at] = val
+        bad.append(bytes(b))
+    for _ in range(4):
+        b = bytearray(good)
+        b[rng.integers(fans.HEADER_BYTES, len(good))] ^= 1 << rng.integers(0, 8)
+        bad.append(bytes(b))
+    tc = ChunkBatch.from_chunks(frames + bad + [good, good[:1302], b""], bound, device="cpu")
+    tc.sizes[len(frames) + len(bad)] -= 40      # truncated
+    for data in (tc.data, tc.data[:, :1200].contiguous()):
+        want = ans_decode.decompress_batch_plain(data, tc.sizes, out_cap)
+        for fn in (ans_decode.decompress_batch, ans_decode.decompress_batch_wide):
+            assert _equal(fn(data.to(card), tc.sizes.to(card), out_cap), want)
+
+
+def test_ans_batched_dispatch_on_card(card):
+    """``batched`` routes "ans" to the wide wrappers (rows 23 and 25)."""
+    cb = _ans_rows()
+    d = ChunkBatch(cb.data.to(card), cb.sizes.to(card))
+    before = [ans_encode.walk_kernel_wide.launches, ans_decode.decompress_batch_wide.launches,
+              ans_encode.walk_kernel.launches, ans_decode.decompress_batch.launches]
+    comp, cst = batched.compress("ans", d)
+    dec, dst = batched.decompress("ans", comp, 65536)
+    torch.cuda.synchronize()
+    assert [ans_encode.walk_kernel_wide.launches, ans_decode.decompress_batch_wide.launches,
+            ans_encode.walk_kernel.launches, ans_decode.decompress_batch.launches] == \
+        [before[0] + 1, before[1] + 1, before[2], before[3]]
+    assert (cst == 0).all() and (dst == 0).all()
+    assert torch.equal(dec.sizes.cpu(), cb.sizes) and dec.to_bytes() == cb.to_bytes()

@@ -1,8 +1,8 @@
 """Format codecs registered with :mod:`tpucomp_torch.batched`.
 
 Port of :mod:`tpucomp.formats`.  LZ4, Snappy, Deflate, gzip (decompression
-only), Zstandard (compression of chunks up to 64 KiB) and GDeflate are ported
-so far
+only), Zstandard (compression of chunks up to 64 KiB), GDeflate and ANS are
+ported so far
 (and the CRC32 of :mod:`.crc32`, which registers no codec); the other
 formats follow in the order of ``ROADMAP.md``.
 """
@@ -20,11 +20,11 @@ def register_all() -> None:
 
     from tpucomp_torch import batched
     from tpucomp_torch.batched import CodecSpec
-    from tpucomp_torch.formats import deflate, gdeflate, gzip, lz4, snappy, zstd
-    from tpucomp_torch.ops.cuda import (deflate_decode, deflate_encode, gdeflate_encode,
-                                        gdeflate_vdecode, lz4_decode2, lz4_encode2,
-                                        snappy_decode, snappy_encode2, zstd_decode,
-                                        zstd_encode)
+    from tpucomp_torch.formats import ans, deflate, gdeflate, gzip, lz4, snappy, zstd
+    from tpucomp_torch.ops.cuda import (ans_decode, ans_encode, deflate_decode,
+                                        deflate_encode, gdeflate_encode, gdeflate_vdecode,
+                                        lz4_decode2, lz4_encode2, snappy_decode,
+                                        snappy_encode2, zstd_decode, zstd_encode)
 
     batched.register(CodecSpec(
         name="lz4",
@@ -85,4 +85,15 @@ def register_all() -> None:
         max_compressed_chunk_size=gdeflate.max_compressed_chunk_size,
         default_opts=gdeflate.DEFAULT_OPTS,
         get_decompress_size=gdeflate.get_decompress_size,
+    ))
+    batched.register(CodecSpec(
+        name="ans",
+        # the portable entries are the kernels' plain versions until the XLA
+        # program of tpucomp/formats/ans.py is ported (ROADMAP A.6); ANSOpts
+        # is empty
+        compress_batch=lambda d, s, o, c: ans_encode.compress_batch_plain(d, s, c),
+        decompress_batch=ans_decode.decompress_batch_plain,
+        max_compressed_chunk_size=ans.max_compressed_chunk_size,
+        default_opts=ans.DEFAULT_OPTS,
+        get_decompress_size=ans.get_decompress_size,
     ))

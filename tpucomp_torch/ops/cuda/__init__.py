@@ -28,6 +28,12 @@ the same module, sits its plain version with the same signature.
   .match.candidates2` in modes fixed, hist and emit, emitting into 32 lane
   bit buffers (``csrc/gdeflate_encode.cu``), with the refill schedule, the
   tile assembly and the dynamic tables in torch ops.
+- :mod:`.ans_decode` — the rANS decode walk (``csrc/ans_decode.cu``), one
+  kernel behind the reference's single-chunk and wide wrappers.
+- :mod:`.ans_encode` — the rANS encode walk (``csrc/ans_encode.cu``), likewise,
+  between the tables and the serialization in torch ops.
+- ``csrc/ans.cuh`` — the rANS warp blocks both ANS kernels run (the
+  device-side API analog).
 - ``csrc/bytecopy.cuh`` — the warp byte-copy helpers they share.
 
 ``KERNEL_DECODERS`` / ``KERNEL_ENCODERS`` map a format name to the kernel
@@ -105,6 +111,19 @@ def _gdeflate_compress_batch(data, sizes, opts, out_cap):
     return gdeflate_encode.compress_algo(data, sizes, opts, out_cap)
 
 
+def _ans_decompress_batch(comp, comp_sizes, out_cap):
+    """The wide wrapper, as the reference dispatches (``ops/pallas/__init__.py:67-74``)."""
+    from tpucomp_torch.ops.cuda import ans_decode
+    return ans_decode.decompress_batch_wide(comp, comp_sizes, out_cap)
+
+
+def _ans_compress_batch(data, sizes, opts, out_cap):
+    """The wide wrapper, as the reference dispatches (``ops/pallas/__init__.py:204-211``).
+    ANSOpts is empty."""
+    from tpucomp_torch.ops.cuda import ans_encode
+    return ans_encode.compress_batch_wide(data, sizes, out_cap)
+
+
 KERNEL_DECODERS = {
     "lz4": _lz4_decompress_batch,
     "snappy": _snappy_decompress_batch,
@@ -112,6 +131,7 @@ KERNEL_DECODERS = {
     "gzip": _gzip_decompress_batch,
     "zstd": _zstd_decompress_batch,
     "gdeflate": _gdeflate_decompress_batch,
+    "ans": _ans_decompress_batch,
 }
 
 KERNEL_ENCODERS = {
@@ -120,4 +140,5 @@ KERNEL_ENCODERS = {
     "deflate": _deflate_compress_batch,
     "zstd": _zstd_compress_batch,
     "gdeflate": _gdeflate_compress_batch,
+    "ans": _ans_compress_batch,
 }
