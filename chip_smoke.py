@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of tpucomp_torch: batched LZ4, Snappy, Deflate (algos
-0, 1, 2), gzip decompress, Zstandard, GDeflate (algos 0, 1, 2) and ANS, and
-the Manager frame path with CRC32 checksums, on one NVIDIA GPU.
+0, 1, 2), gzip decompress, Zstandard, GDeflate (algos 0, 1, 2), ANS and
+Cascaded, and the Manager frame path with CRC32 checksums, on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``:
 
@@ -11,10 +11,10 @@ Phases, each printing its own lines; any failure ends the run with a non-zero
 exit code and no result line:
 
 1. device: name, count, and ``nvidia-smi``'s name and power limit;
-2. build: the twelve CUDA libraries from ``tpucomp_torch/ops/cuda/csrc`` (one
+2. build: the thirteen CUDA libraries from ``tpucomp_torch/ops/cuda/csrc`` (one
    ``nvcc`` each, in parallel), with their ``-Xptxas -v`` register/shared-memory
    lines;
-3. kernel vs plain: each of the twenty kernels on the card against its plain
+3. kernel vs plain: each of the twenty-one kernels on the card against its plain
    version on a host copy of the same inputs (<= 8 chunks per corpus at the
    main path's 64 KiB shape, edge and hand-made streams, truncated and
    bit-flipped streams, an out_cap that is too small; for Deflate, zlib
@@ -39,8 +39,11 @@ exit code and no result line:
    the head chunks, the edge rows of tests/test_pallas_ans.py and a batch of
    5, at out_cap = bound and 4096, with ``tables_for`` on the card against
    the CPU, and both decoders on those frames, corrupt frames, rows cut
-   below the header, out_cap 1000 and tests/golden/ans.bin); exact equality
-   of bytes, sizes, statuses, tokens and table words;
+   below the header, out_cap 1000 and tests/golden/ans.bin; for Cascaded,
+   the RLE expansion on whole rows of the fast decoder's ``_stage1`` outputs
+   of each configuration's head chunks, hand-made run streams and corrupt
+   ones); exact equality of bytes, sizes, statuses, tokens, table words and
+   values;
 4. full width: two 64 MiB corpora from seed 42 (``mortgage_like``,
    ``mixed_corpus``) cut into 1024 chunks of 64 KiB, one batch each, through
    ``batched.compress`` / ``batched.decompress`` (backend "auto") for LZ4,
@@ -52,13 +55,18 @@ exit code and no result line:
    ``batched.decompress("gdeflate")`` in algos 0, 1, 2 (rows 13-14, 16-17;
    tests/gdeflate_pyref.py reads three tiles of each), ``batched.compress`` /
    ``batched.decompress("ans")`` (rows 25, 23) with rows 24 and 22 through
-   their own wrappers on the same chunks, with the launch counts of that run,
+   their own wrappers on the same chunks, ``batched.compress`` /
+   ``batched.decompress("cascaded")`` (row 26) on three configurations of
+   1024 x 64 KiB (mortgage as LONGLONG r2 d1, ``low_cardinality_ints`` as
+   INT r1 d0, mixed as UINT r2 d1, all bit-packed), with the launch counts of
+   that run, the general program's frames (backend "xla") beside the fast
+   path's and tests/golden/cascaded.bin through both,
    bit-exact round trips, the decoders reading streams staged by liblz4 /
    libsnappy / zlib level 6 / gzip / libzstd, liblz4, libsnappy, zlib,
    libdeflate and libzstd reading the port's frames, and CUDA-event timings;
 5. manager: each corpus as one 64 MiB buffer through ``Manager(fmt, 65536,
    COMPUTE_AND_VERIFY)`` for LZ4, Snappy, Deflate (algo 1), Zstandard,
-   GDeflate (algo 1) and ANS,
+   GDeflate (algo 1), ANS and Cascaded (each corpus's configuration),
    ``create_manager`` and
    ``decompress`` (bit-exact, ``SUCCESS``), a flipped payload byte
    (``ERROR_BAD_CHECKSUM``), the frame without its CRC tables through a
@@ -112,8 +120,19 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "ans_decode_wide": ("ans_decode.cu", "tpucomp/ops/pallas/ans_decode.py:285"),
     "ans_encode": ("ans_encode.cu", "tpucomp/ops/pallas/ans_encode.py:119"),
     "ans_encode_wide": ("ans_encode.cu", "tpucomp/ops/pallas/ans_encode.py:196"),
+    "cascaded_expand": ("cascaded_expand.cu", "tpucomp/ops/pallas/cascaded_expand.py:48"),
 }
 ALGOS = (0, 1, 2)
+CAS_ITERS = 3             # timing iterations of the Cascaded stages
+# Cascaded configurations: nvCOMP's num_RLEs=2, num_deltas=1, use_bp=1
+# (benchmark_cascaded_chunked.cu:35-36) and the reference's per-dataset
+# choices (benchmarks/benchmark_all_algorithms.py:46-60): name -> (type, r, d, bp)
+CAS_CONFIGS = {"mortgage": ("LONGLONG", 2, 1, True), "lowcard": ("INT", 1, 0, True),
+               "mixed": ("UINT", 2, 1, True)}
+# the configurations whose fast-path frames must equal the general program's
+# on every chunk (the reference's two encoders agree on these columns; on
+# mixed's UINT deltas they choose widths on different ladders, W32 and W64)
+CAS_SAME_FRAMES = ("mortgage", "lowcard")
 
 
 def check(ok: bool, what: str) -> None:
@@ -185,7 +204,10 @@ def main() -> int:
     from tpucomp_torch import batched
     from tpucomp_torch.chunk import ChunkBatch
     from tpucomp_torch.constants import Status
+    from tpucomp_torch.chunk import wrap_i32
+    from tpucomp_torch.constants import ElementType
     from tpucomp_torch.formats import ans as fans
+    from tpucomp_torch.formats import cascaded as fcas
     from tpucomp_torch.formats import crc32
     from tpucomp_torch.formats import deflate as fdeflate
     from tpucomp_torch.formats import gdeflate as fgdeflate
@@ -195,8 +217,9 @@ def main() -> int:
     from tpucomp_torch.formats import zstd as fzstd
     from tpucomp_torch.interop import cpu as interop
     from tpucomp_torch.manager import ChecksumPolicy, Manager, create_manager
-    from tpucomp_torch.ops import match
-    from tpucomp_torch.ops.cuda import (_build, ans_decode, ans_encode, deflate_decode,
+    from tpucomp_torch.ops import cascaded_fast, match
+    from tpucomp_torch.ops.cuda import (_build, ans_decode, ans_encode, cascaded_expand,
+                                        deflate_decode,
                                         deflate_encode, gdeflate_encode, gdeflate_vdecode,
                                         lz4_decode2, lz4_encode2, snappy_decode,
                                         snappy_encode2, zstd_decode, zstd_encode)
@@ -224,7 +247,8 @@ def main() -> int:
                 "ans_decode": (ans_decode.decompress_batch,),
                 "ans_decode_wide": (ans_decode.decompress_batch_wide,),
                 "ans_encode": (ans_encode.walk_kernel,),
-                "ans_encode_wide": (ans_encode.walk_kernel_wide,)}
+                "ans_encode_wide": (ans_encode.walk_kernel_wide,),
+                "cascaded_expand": (cascaded_expand.expand_batch,)}
 
     def reset_counts() -> None:
         for fns in counters.values():
@@ -258,6 +282,11 @@ def main() -> int:
     t0 = time.perf_counter()
     corpora = {"mortgage": synth.mortgage_like(CORPUS_BYTES, seed=SEED).tobytes(),
                "mixed": synth.mixed_corpus(CORPUS_BYTES, seed=SEED).tobytes()}
+    cas_data = {"mortgage": corpora["mortgage"],
+                "lowcard": synth.low_cardinality_ints(CORPUS_BYTES, seed=SEED).tobytes(),
+                "mixed": corpora["mixed"]}
+    cas_opts = {k: fcas.CascadedOpts(ElementType[t], r, d, bp)
+                for k, (t, r, d, bp) in CAS_CONFIGS.items()}
     have = interop.available()
     print(f"[data] two corpora of {CORPUS_BYTES >> 20} MiB, seed {SEED}, "
           f"{time.perf_counter() - t0:.1f} s; liblz4 "
@@ -719,6 +748,54 @@ def main() -> int:
 
     lap("3 ans")
 
+    # Cascaded: row 26 on whole rows of the fast decoder's _stage1 outputs of
+    # each configuration's head chunks, hand-made run streams at the main
+    # path's cap_el = 65536 (nr 0/1/2, no runs, runs of 1, 127, 128, 129 and
+    # cap_el) and corrupt ones (zero-length, negative and over-long runs,
+    # counts outside the row, nr above 2, int32 run starts that wrap)
+    def to_i32(x):
+        return wrap_i32(x).to(torch.int32)
+
+    def stage1_args(comp, comp_sizes):
+        """The expansion's inputs for the fast decoder's rows, on the card."""
+        s1 = cascaded_fast._stage1(comp, cascaded_fast.comp_words(comp, CHUNK), comp_sizes,
+                                   CHUNK)
+        return (to_i32(s1[0]), to_i32(s1[1]), s1[2], s1[3], s1[4]), s1
+
+    for name, raw in cas_data.items():
+        cb = ChunkBatch.from_bytes(raw[:PHASE3_CHUNKS * CHUNK], CHUNK, device=dev)
+        opts = cas_opts[name]
+        comp, csz, cst = cascaded_fast.compress_batch(
+            cb.data, cb.sizes, opts, fcas.max_compressed_chunk_size(CHUNK, opts))
+        check(bool((cst == Status.SUCCESS).all()), f"cascaded {name}: head chunks' statuses")
+        args, _ = stage1_args(comp, csz)
+        compare("cascaded_expand", cascaded_expand.expand_batch,
+                cascaded_expand.expand_batch_plain, tuple(a.cpu() for a in args) + (CHUNK,),
+                f"_stage1 of {PHASE3_CHUNKS} {name} chunks ({opts.type.name} "
+                f"r{opts.num_rles} d{opts.num_deltas})")
+    ce = CHUNK
+    cas_hand = [((ce, 0, 0, 0), [], []), ((0, 0, 0, 1), [], []), ((ce, ce, 0, 1), [1] * ce, []),
+                ((ce, 4, 0, 1), [127, 128, 129, ce - 384], []), ((ce, 1, 0, 1), [ce], []),
+                ((ce, 4, 3, 2), [1000, 24, 1024, ce - 2048], [1, 2, 1]),
+                ((ce, 8192, 3, 2), [8] * 8192, [4000, 4000, 192])]
+    cas_corrupt = [((ce, 6, 0, 1), [0, 5, 0, 90000, 3, -4], []), ((0, -3, 0, 1), [4, 4], []),
+                   ((ce, ce + 50, 7, 2), [2] * 50, [10, 0, 200000, 1, 1, -1, 3]),
+                   ((ce, 2, 2, 7), [ce // 2] * 2, [1, 1]), ((ce, ce, 0, 1), [ce] * ce, [])]
+    crng = np.random.default_rng(SEED)
+    for rows, label in ((cas_hand, "hand-made run streams"), (cas_corrupt, "corrupt run streams")):
+        B = len(rows)
+        vals = [torch.from_numpy(crng.integers(-2**31, 2**31, (B, ce)).astype(np.int32))
+                for _ in range(2)]
+        runs = [torch.zeros((B, ce), dtype=torch.int32) for _ in range(2)]
+        for b, (_, r1, r2) in enumerate(rows):
+            runs[0][b, :len(r1)] = torch.tensor(r1, dtype=torch.int32)
+            runs[1][b, :len(r2)] = torch.tensor(r2, dtype=torch.int32)
+        sc = torch.tensor([r[0] for r in rows], dtype=torch.int32)
+        compare("cascaded_expand", cascaded_expand.expand_batch,
+                cascaded_expand.expand_batch_plain, (*vals, *runs, sc, ce), f"{B} {label}")
+
+    lap("3 cascaded")
+
     # ------------------------------------------------------------ 4 full width
     batches, staged = {}, {}
     for name, raw in corpora.items():
@@ -739,6 +816,8 @@ def main() -> int:
         staged[name, "zstd_big"] = ChunkBatch.from_chunks(
             list(pool.map(interop.zstd_compress, big_chunks)),
             fzstd.max_compressed_chunk_size(BIG_CHUNK), device=dev)
+    cas_batches = {k: batches[k] if k in batches else ChunkBatch.from_bytes(v, CHUNK, device=dev)
+                   for k, v in cas_data.items()}
     torch.cuda.synchronize()
     lap("4 staging")
     torch.cuda.reset_peak_memory_stats()
@@ -774,6 +853,12 @@ def main() -> int:
                           + ans_encode.compress_batch(cb.data, cb.sizes, acap)
                           + ans_decode.decompress_batch(acomp.data, acomp.sizes, CHUNK))
     torch.cuda.synchronize()
+    lap("4 main path")
+    cresults = {}
+    for name, cb in cas_batches.items():      # Cascaded, three configurations (row 26)
+        ccomp, ccst = batched.compress("cascaded", cb, cas_opts[name])
+        cresults[name] = (ccomp, ccst) + batched.decompress("cascaded", ccomp, CHUNK)
+    torch.cuda.synchronize()
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     print(f"[full] launches in the main-path run: {launches}; peak device memory "
@@ -781,7 +866,7 @@ def main() -> int:
     check(all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}")
     check(gdeflate_encode.fixed_kernel.launches > 0 and gdeflate_encode.emit_kernel.launches > 0,
           "the GDeflate walk was not launched in both of its emitting modes")
-    lap("4 main path")
+    lap("4 main path, cascaded")
 
     kernel_ms = {k: 0.0 for k in KERNELS}
     bound = {k: 0.0 for k in KERNELS}
@@ -1106,17 +1191,96 @@ def main() -> int:
 
     lap("4 checks and timings, ans")
 
+    # Cascaded: round trips, the general program's frames (backend "xla") beside
+    # the fast path's, the golden frames through both backends, and the times
+    # of the fast path's stages, each timed alone
+    gblob = (HERE / "tests" / "golden" / "cascaded.bin").read_bytes()
+    ng = int(np.frombuffer(gblob[:4], np.int32)[0])
+    goff = 4 + 4 * ng + np.concatenate([[0], np.cumsum(np.frombuffer(gblob[4:4 + 4 * ng],
+                                                                     np.int32))])
+    cgold = ChunkBatch.from_chunks([gblob[goff[i]:goff[i + 1]] for i in range(ng)], device=dev)
+    for backend, want in (("xla", [0, 0, 0]), ("auto", [0, 12, 12])):
+        gdec, gst = batched.decompress("cascaded", cgold, gk, backend=backend)
+        gbytes = gdec.chunk_list()
+        check(gst.tolist() == want and all(gbytes[i] == graw[i * gk:(i + 1) * gk]
+                                           for i in range(ng) if want[i] == 0),
+              f"cascaded golden frames, backend {backend}: statuses {gst.tolist()}, "
+              f"the reference's {want}")
+        print(f"[full] cascaded golden frames, backend {backend}: statuses {gst.tolist()} "
+              f"(the reference's {want})")
+    for name, (comp, cst, dec, dst) in cresults.items():
+        cb, opts = cas_batches[name], cas_opts[name]
+        B, sizes, raw_bytes = cb.num_chunks, cb.sizes, int(cb.total_bytes)
+        check(bool((cst == Status.SUCCESS).all()) and bool((dst == Status.SUCCESS).all()),
+              f"{name} cascaded: statuses")
+        check(torch.equal(dec.sizes, cb.sizes) and torch.equal(dec.data, cb.data),
+              f"{name} cascaded: round trip through the fast path is not bit-exact")
+        xcomp, xcst = batched.compress("cascaded", cb, opts, backend="xla")
+        same = int(((xcomp.data == comp.data).all(dim=1) & (xcomp.sizes == comp.sizes)).sum())
+        check(bool((xcst == Status.SUCCESS).all()), f"{name} cascaded: xla compress statuses")
+        check(name not in CAS_SAME_FRAMES or same == B,
+              f"{name} cascaded: {same} of {B} fast-path frames equal the general program's")
+        for fcomp, backend in ((xcomp, "auto"), (comp, "xla")):
+            xdec, xdst = batched.decompress("cascaded", fcomp, CHUNK, backend=backend)
+            check(bool((xdst == Status.SUCCESS).all()) and torch.equal(xdec.data, cb.data),
+                  f"{name} cascaded: the decoder of backend {backend} does not read the "
+                  f"other encoder's frames bit-exactly")
+        args, s1 = stage1_args(comp.data, comp.sizes)
+        elo, ehi = cascaded_expand.expand_batch(*args, CHUNK)
+        e64 = (elo.to(torch.int64) & 0xFFFFFFFF, ehi.to(torch.int64) & 0xFFFFFFFF)
+        times = {"iters": CAS_ITERS, "warmup": 1}
+        t = {k: time_ms(torch, fn, **times) for k, fn in (
+            ("compress_ms", lambda: batched.compress("cascaded", cb, opts)),
+            ("decompress_ms", lambda: batched.decompress("cascaded", comp, CHUNK)),
+            ("stage1_ms", lambda: stage1_args(comp.data, comp.sizes)),
+            ("expand_ms", lambda: cascaded_expand.expand_batch(*args, CHUNK)),
+            ("stage2_ms", lambda: cascaded_fast._stage2(*e64, s1[5], s1[4][:, 0], s1[6],
+                                                        CHUNK)),
+            ("xla_compress_ms", lambda: batched.compress("cascaded", cb, opts,
+                                                         backend="xla")))}
+        sc = s1[4].to(torch.int64)
+        n1, n2, nr = sc[:, 1], sc[:, 2], sc[:, 3]
+        # row 26 reads runs1[:n1], runs2[:n2] (4 B each), the values [:n2] (two
+        # halves, 8 B) and the scalars (16 B), and writes 8 B an element of each
+        # output row; the function needs no intermediate row, and the kernel's
+        # scratch counts and indices are not counted
+        ex_read = int((4 * n1 * (nr >= 1) + 4 * n2 * (nr >= 2) + 8 * n2 + 16).sum())
+        ex_written = 8 * CHUNK * B
+        kernel_ms["cascaded_expand"] += t["expand_ms"]
+        bound["cascaded_expand"] += bytes_bound_ms(ex_read, ex_written)
+        comp_bytes = int(comp.total_bytes)
+        row = {"corpus": name, "format": "cascaded",
+               "opts": f"{opts.type.name} r{opts.num_rles} d{opts.num_deltas} "
+                       f"bp{int(opts.use_bp)}",
+               "chunks": B, "raw_bytes": raw_bytes, "ratio": raw_bytes / comp_bytes,
+               "xla_ratio": raw_bytes / int(xcomp.total_bytes),
+               "frames_equal_to_xla": same, "runs1": int(n1.sum()), "runs2": int(n2.sum()),
+               **t, "expand_read_bytes": ex_read, "expand_written_bytes": ex_written,
+               "compress_GBps": raw_bytes / t["compress_ms"] / 1e6,
+               "decompress_GBps": raw_bytes / t["decompress_ms"] / 1e6}
+        print(f"[full] {json.dumps(row)}")
+    del cresults
+
+    lap("4 checks and timings, cascaded")
+
     # --------------------------------------------------------------- 5 manager
     verify = ChecksumPolicy.COMPUTE_AND_VERIFY
     bufs = {name: torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(dev)
             for name, raw in corpora.items()}
     mgr_opts = {"lz4": None, "snappy": None, "deflate": fdeflate.DeflateOpts(algo=1),
-                "zstd": None, "gdeflate": fgdeflate.GdeflateOpts(algo=1), "ans": None}
+                "zstd": None, "gdeflate": fgdeflate.GdeflateOpts(algo=1), "ans": None,
+                "cascaded": None}
+
+    def opts_of(fmt: str, name: str):
+        """The Manager's options: Cascaded takes each corpus's configuration."""
+        return cas_opts[name] if fmt == "cascaded" else mgr_opts[fmt]
+
     torch.cuda.synchronize()
     reset_counts()
     frames = {}
     for name, buf in bufs.items():            # the Manager path, once
-        for fmt, opts in mgr_opts.items():
+        for fmt in mgr_opts:
+            opts = opts_of(fmt, name)
             frame = Manager(fmt, CHUNK, opts, checksum_policy=verify).compress(buf)
             mgr = create_manager(frame)
             cfg = mgr.configure_decompression(frame)
@@ -1146,7 +1310,9 @@ def main() -> int:
         mgr.decompress(bad, bcfg)
         check(bcfg.get_status() == Status.ERROR_BAD_CHECKSUM,
               f"manager {name} {fmt}: a flipped payload byte gave {bcfg.get_status()!r}")
-        plain_mgr = Manager(fmt, CHUNK, mgr_opts[fmt])
+        check(fmt != "cascaded" or mgr.opts == opts_of(fmt, name),
+              f"manager {name} {fmt}: create_manager read {mgr.opts!r} from the opts blob")
+        plain_mgr = Manager(fmt, CHUNK, opts_of(fmt, name))
         stripped = without_crc_tables(host, n)
         check(stripped.tobytes() == plain_mgr.compress(buf).cpu().numpy().tobytes(),
               f"manager {name} {fmt}: the frame minus its CRC tables differs from "
@@ -1156,13 +1322,13 @@ def main() -> int:
               and pcfg.get_status() == Status.SUCCESS,
               f"manager {name} {fmt}: the frame without CRC tables does not read back")
 
-        m = Manager(fmt, CHUNK, mgr_opts[fmt], checksum_policy=verify)
+        m = Manager(fmt, CHUNK, opts_of(fmt, name), checksum_policy=verify)
         t_comp = time_ms(torch, lambda: m.compress(buf))
         t_dec = time_ms(torch, lambda: mgr.decompress(frame, cfg))
         cb = batches[name]
         t_crc = time_ms(torch, lambda: crc32.crc32_batch(cb.data, cb.sizes))
         raw_bytes = buf.numel()
-        row = {"corpus": name, "format": fmt, "opts": repr(mgr_opts[fmt]),
+        row = {"corpus": name, "format": fmt, "opts": repr(opts_of(fmt, name)),
                "policy": verify.name, "chunks": n,
                "raw_bytes": raw_bytes, "frame_bytes": frame.numel(),
                "frame_ratio": raw_bytes / frame.numel(),
@@ -1193,10 +1359,14 @@ def main() -> int:
           "tiles; ans_encode/_wide are the walk alone, bound by the raw bytes read and the "
           "frames written, ans_decode/_wide read the port's frames); launches: the batched "
           "main-path run (gdeflate_encode: modes fixed and emit; ans_encode and ans_decode "
-          "through their own wrappers in that run); plain_ms: the plain version on the "
+          "through their own wrappers in that run); cascaded_expand: the three Cascaded "
+          "configurations summed, on the fast decoder's _stage1 outputs of the port's "
+          "frames, bound by runs1[:n1] and runs2[:n2] (4 B each), the values [:n2] (8 B) "
+          "and the scalars read and 8 B an element of every row written, twice where "
+          "nr == 2; plain_ms: the plain version on the "
           "phase-3 inputs (host; each ANS plain version ran once for both of its kernels, "
           "its time stands beside each); no PyTorch call computes LZ4, Snappy, Deflate, "
-          "Zstandard, GDeflate or rANS")
+          "Zstandard, GDeflate, rANS or this two-pass RLE expansion")
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

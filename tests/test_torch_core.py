@@ -26,8 +26,8 @@ import tpucomp_torch.chunk as chunk
 import tpucomp_torch.constants as constants
 from tpucomp_torch import batched, logging as tlog
 from tpucomp_torch.interop import cpu as interop
-from tpucomp_torch.ops.cuda import (_build, ans_decode, ans_encode, lz4_decode2, lz4_encode2,
-                                    snappy_decode, snappy_encode2)
+from tpucomp_torch.ops.cuda import (_build, ans_decode, ans_encode, cascaded_expand, lz4_decode2,
+                                    lz4_encode2, snappy_decode, snappy_encode2)
 from tpucomp_torch.utils import synth
 
 REPO = Path(__file__).resolve().parents[1]
@@ -183,6 +183,14 @@ def test_kernel_paths_refuse_cpu_tensors():
     for fn in (ans_encode.walk_kernel, ans_encode.walk_kernel_wide):
         with pytest.raises(ValueError, match="CUDA"):
             fn(cb.data, cb.sizes, z, z)
+    with pytest.raises(ValueError, match="CUDA"):
+        batched.compress("cascaded", cb, backend="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        batched.decompress("cascaded", cb, 16, backend="kernel")
+    z = torch.zeros((cb.num_chunks, 16), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        cascaded_expand.expand_batch(z, z, z, z, torch.zeros((cb.num_chunks, 4),
+                                                             dtype=torch.int32), 16)
 
 
 def test_unported_paths_raise_not_implemented():
@@ -203,7 +211,8 @@ def test_unported_paths_raise_not_implemented():
 
 
 def test_api_parity_shims():
-    assert batched.formats() == ["ans", "deflate", "gdeflate", "gzip", "lz4", "snappy", "zstd"]
+    assert batched.formats() == ["ans", "cascaded", "deflate", "gdeflate", "gzip", "lz4",
+                                 "snappy", "zstd"]
     assert batched.compress_get_temp_size("lz4", 10, 65536) == 0
     assert batched.decompress_get_temp_size("lz4", 10, 65536) == 0
     assert batched.compress_get_temp_size_ex("lz4", 10, 65536, 1 << 20) == 0
@@ -322,7 +331,9 @@ def test_import_leaves_jax_and_reference_out():
             "tpucomp_torch.ops.cuda.zstd_decode, tpucomp_torch.formats.gdeflate, "
             "tpucomp_torch.ops.cuda.gdeflate_vdecode, tpucomp_torch.ops.cuda.gdeflate_encode, "
             "tpucomp_torch.formats.ans, tpucomp_torch.ops.cuda.ans_decode, "
-            "tpucomp_torch.ops.cuda.ans_encode, "
+            "tpucomp_torch.ops.cuda.ans_encode, tpucomp_torch.ops.bitpack, "
+            "tpucomp_torch.formats.cascaded, tpucomp_torch.ops.cascaded_fast, "
+            "tpucomp_torch.ops.cuda.cascaded_expand, "
             "tpucomp_torch.manager, tpucomp_torch.utils.synth, tpucomp_torch.interop.cpu\n"
             "tpucomp_torch.batched.formats()\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tpucomp')]\n"

@@ -16,7 +16,10 @@ import torch
 from tpucomp_torch import batched
 from tpucomp_torch.chunk import ChunkBatch
 from tpucomp_torch.constants import Status
+from tpucomp_torch.chunk import wrap_i32
+from tpucomp_torch.constants import ElementType
 from tpucomp_torch.formats import ans as fans
+from tpucomp_torch.formats import cascaded as fcas
 from tpucomp_torch.formats import crc32
 from tpucomp_torch.formats import deflate as fdeflate
 from tpucomp_torch.formats import gdeflate as fgdeflate
@@ -26,8 +29,9 @@ from tpucomp_torch.formats import snappy as fsnappy
 from tpucomp_torch.formats import zstd as fzstd
 from tpucomp_torch.interop import cpu as interop
 from tpucomp_torch.manager import ChecksumPolicy, Manager, create_manager
-from tpucomp_torch.ops import match
-from tpucomp_torch.ops.cuda import (ans_decode, ans_encode, deflate_decode, deflate_encode,
+from tpucomp_torch.ops import cascaded_fast, match
+from tpucomp_torch.ops.cuda import (ans_decode, ans_encode, cascaded_expand, deflate_decode,
+                                    deflate_encode,
                                     gdeflate_encode, gdeflate_vdecode, lz4_decode2, lz4_encode2,
                                     snappy_decode, snappy_encode2, zstd_decode, zstd_encode)
 from tpucomp_torch.utils import synth
@@ -569,3 +573,99 @@ def test_ans_batched_dispatch_on_card(card):
         [before[0] + 1, before[1] + 1, before[2], before[3]]
     assert (cst == 0).all() and (dst == 0).all()
     assert torch.equal(dec.sizes.cpu(), cb.sizes) and dec.to_bytes() == cb.to_bytes()
+
+
+_CAS_OPTS = fcas.CascadedOpts(ElementType.LONGLONG, 2, 1, True)
+
+
+def _cas_rows(cap: int = 65536):
+    """Row 26's inputs at the main path's cap_el: hand-made run streams (nr
+    0/1/2, no runs, runs of 1, 127, 128, 129 and cap_el), corrupt ones
+    (zero-length, negative and over-long runs, counts outside the row, nr
+    above 2, int32 starts that wrap)."""
+    rows = [((cap, 0, 0, 0), [], []), ((0, 0, 0, 1), [], []), ((cap, cap, 0, 1), [1] * cap, []),
+            ((cap, 4, 0, 1), [127, 128, 129, cap - 384], []), ((cap, 1, 0, 1), [cap], []),
+            ((cap, 4, 3, 2), [1000, 24, 1024, cap - 2048], [1, 2, 1]),
+            ((cap, 6, 0, 1), [0, 5, 0, 90000, 3, -4], []), ((0, -3, 0, 1), [4, 4], []),
+            ((cap, cap + 50, 7, 2), [2] * 50, [10, 0, 200000, 1, 1, -1, 3]),
+            ((cap, 2, 2, 7), [cap // 2] * 2, [1, 1]), ((cap, cap, 0, 1), [cap] * cap, [])]
+    rng = np.random.default_rng(26)
+    B = len(rows)
+    vals = [torch.from_numpy(rng.integers(-2**31, 2**31, (B, cap)).astype(np.int32))
+            for _ in range(2)]
+    runs = [torch.zeros((B, cap), dtype=torch.int32) for _ in range(2)]
+    for b, (_, r1, r2) in enumerate(rows):
+        runs[0][b, :len(r1)] = torch.tensor(r1, dtype=torch.int32)
+        runs[1][b, :len(r2)] = torch.tensor(r2, dtype=torch.int32)
+    return (*vals, *runs, torch.tensor([r[0] for r in rows], dtype=torch.int32))
+
+
+def _cas_batch(device):
+    raw = [synth.mortgage_like(65536, seed=s).tobytes() for s in (1, 2)]
+    raw += [synth.sorted_ints(65536, seed=3).tobytes(), raw[0][:8], b""]
+    return ChunkBatch.from_chunks(raw, 65536, device=device)
+
+
+def test_cascaded_expand_kernel_equals_plain(card):
+    """Row 26 on whole rows: the hand-made and corrupt run streams, and the
+    fast decoder's _stage1 outputs of the port's LONGLONG frames."""
+    args = _cas_rows()
+    before = cascaded_expand.expand_batch.launches
+    got = cascaded_expand.expand_batch(*(a.to(card) for a in args), 65536)
+    torch.cuda.synchronize()
+    assert cascaded_expand.expand_batch.launches == before + 1
+    assert _equal(got, cascaded_expand.expand_batch_plain(*args, 65536))
+    cb = _cas_batch("cpu")
+    comp = cascaded_fast.compress_batch(cb.data, cb.sizes, _CAS_OPTS,
+                                        fcas.max_compressed_chunk_size(65536, _CAS_OPTS))
+    s1 = cascaded_fast._stage1(comp[0], cascaded_fast.comp_words(comp[0], 65536), comp[1], 65536)
+    args = (wrap_i32(s1[0]).to(torch.int32), wrap_i32(s1[1]).to(torch.int32), *s1[2:5])
+    assert _equal(cascaded_expand.expand_batch(*(a.to(card) for a in args), 65536),
+                  cascaded_expand.expand_batch_plain(*args, 65536))
+
+
+def test_cascaded_batched_dispatch_on_card(card):
+    """``batched`` routes "cascaded" to the fast path (row 26 once a
+    decode); its frames and rows equal the fast path's on the CPU, and
+    backend "xla" gives the general program's frames on either device."""
+    cb = _cas_batch("cpu")
+    d = ChunkBatch(cb.data.to(card), cb.sizes.to(card))
+    before = cascaded_expand.expand_batch.launches
+    comp, cst = batched.compress("cascaded", d, _CAS_OPTS)
+    dec, dst = batched.decompress("cascaded", comp, 65536)
+    torch.cuda.synchronize()
+    assert cascaded_expand.expand_batch.launches == before + 1
+    assert (cst == 0).all() and (dst == 0).all() and dec.to_bytes() == cb.to_bytes()
+    cap = fcas.max_compressed_chunk_size(65536, _CAS_OPTS)
+    assert _equal((comp.data, comp.sizes, cst),
+                  cascaded_fast.compress_batch(cb.data, cb.sizes, _CAS_OPTS, cap))
+    assert _equal((dec.data, dec.sizes, dst),
+                  cascaded_fast.decompress_batch(comp.data.cpu(), comp.sizes.cpu(), 65536,
+                                                 plain=True))
+    x_card = batched.compress("cascaded", d, _CAS_OPTS, backend="xla")
+    x_cpu = batched.compress("cascaded", cb, _CAS_OPTS, backend="xla")
+    assert _equal((x_card[0].data, x_card[0].sizes, x_card[1]),
+                  (x_cpu[0].data, x_cpu[0].sizes, x_cpu[1]))
+    xd = batched.decompress("cascaded", x_card[0], 65536)
+    assert xd[0].to_bytes() == cb.to_bytes()
+
+
+def test_cascaded_manager_on_card(card):
+    """``Manager("cascaded")`` on the card (the fast path) writes the CPU
+    Manager's frame (the general program) where the two encoders agree, and
+    reads it back."""
+    buf = synth.low_cardinality_ints(1 << 20, seed=10).tobytes()
+    opts = fcas.CascadedOpts(ElementType.INT, 1, 0, True)
+    policy = ChecksumPolicy.COMPUTE_AND_VERIFY
+    frame = Manager("cascaded", 65536, opts, checksum_policy=policy).compress(buf)
+    assert frame.is_cuda
+    assert frame.cpu().numpy().tobytes() == Manager(
+        "cascaded", 65536, opts, checksum_policy=policy, device="cpu").compress(
+        buf).numpy().tobytes()
+    mgr = create_manager(frame)
+    assert mgr.opts == opts
+    cfg = mgr.configure_decompression(frame)
+    out = mgr.decompress(frame, cfg)
+    assert out.is_cuda and cfg.get_status() == Status.SUCCESS
+    assert out.cpu().numpy().tobytes() == buf
+

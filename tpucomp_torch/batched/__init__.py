@@ -20,8 +20,9 @@ C function families (``doc/lowlevel_c_quickstart.md:32-137``).
 * ``"kernel"`` — the Hopper kernel (the reference's ``"pallas"``); raises for
   CPU tensors;
 * ``"plain"`` — the plain version, on any device (for tests and checks);
-* ``"xla"`` — the reference's log-depth program, not ported yet: raises
-  ``NotImplementedError``.
+* ``"xla"`` — the reference's log-depth program: for ``cascaded`` the
+  registered general program (as the reference's ``xla``); for the other
+  formats not ported yet, ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -151,6 +152,7 @@ def _input_violations(fmt: str, spec: CodecSpec, sizes: torch.Tensor,
 
 
 _ENV_BACKEND = {"encoder": "TPUCOMP_ENCODE_BACKEND", "decoder": "TPUCOMP_DECODE_BACKEND"}
+_XLA_PORTED = ("cascaded",)   # formats whose registered entries are the reference's xla
 
 
 def _impl(fmt: str, backend: str, on_cuda: bool, kernels: dict, plain: Callable,
@@ -170,6 +172,8 @@ def _impl(fmt: str, backend: str, on_cuda: bool, kernels: dict, plain: Callable,
     if backend == "plain":
         return plain
     if backend == "xla":
+        if fmt in _XLA_PORTED:
+            return plain
         raise NotImplementedError(f"backend 'xla': {_LOG_DEPTH_TODO.format(fmt=fmt)}")
     raise ValueError(f"unknown backend {backend!r} (auto/kernel/plain/xla)")
 

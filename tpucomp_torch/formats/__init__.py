@@ -1,8 +1,8 @@
 """Format codecs registered with :mod:`tpucomp_torch.batched`.
 
 Port of :mod:`tpucomp.formats`.  LZ4, Snappy, Deflate, gzip (decompression
-only), Zstandard (compression of chunks up to 64 KiB), GDeflate and ANS are
-ported so far
+only), Zstandard (compression of chunks up to 64 KiB), GDeflate, ANS and
+Cascaded are ported so far
 (and the CRC32 of :mod:`.crc32`, which registers no codec); the other
 formats follow in the order of ``ROADMAP.md``.
 """
@@ -20,7 +20,8 @@ def register_all() -> None:
 
     from tpucomp_torch import batched
     from tpucomp_torch.batched import CodecSpec
-    from tpucomp_torch.formats import ans, deflate, gdeflate, gzip, lz4, snappy, zstd
+    from tpucomp_torch.formats import (ans, cascaded, deflate, gdeflate, gzip, lz4, snappy,
+                                       zstd)
     from tpucomp_torch.ops.cuda import (ans_decode, ans_encode, deflate_decode,
                                         deflate_encode, gdeflate_encode, gdeflate_vdecode,
                                         lz4_decode2, lz4_encode2, snappy_decode,
@@ -96,4 +97,16 @@ def register_all() -> None:
         max_compressed_chunk_size=ans.max_compressed_chunk_size,
         default_opts=ans.DEFAULT_OPTS,
         get_decompress_size=ans.get_decompress_size,
+    ))
+    batched.register(CodecSpec(
+        name="cascaded",
+        # the general program (the reference's registry entry and its
+        # backend "xla"); the fast path with the row-26 kernel is the
+        # kernel dispatch's
+        compress_batch=cascaded.compress_batch,
+        decompress_batch=cascaded.decompress_batch,
+        max_compressed_chunk_size=cascaded.max_compressed_chunk_size,
+        default_opts=cascaded.DEFAULT_OPTS,
+        get_decompress_size=cascaded.get_decompress_size,
+        elem_size=lambda o: o.type.nbytes,
     ))

@@ -93,6 +93,11 @@ def _opts_to_blob(fmt: str, opts: Any) -> bytes:
     blob = bytearray(16)
     if fmt == "lz4":
         blob[0] = int(opts.data_type)
+    elif fmt == "cascaded":
+        blob[0] = int(opts.type)
+        blob[1] = opts.num_rles
+        blob[2] = opts.num_deltas
+        blob[3] = int(opts.use_bp)
     elif fmt in ("deflate", "gdeflate"):
         blob[0] = opts.algo
     return bytes(blob)   # snappy: no options, 16 zero bytes
@@ -102,6 +107,10 @@ def _opts_from_blob(fmt: str, blob: bytes) -> Any:
     if fmt == "lz4":
         from tpucomp_torch.formats.lz4 import LZ4Opts
         return LZ4Opts(data_type=ElementType(blob[0]))
+    if fmt == "cascaded":
+        from tpucomp_torch.formats.cascaded import CascadedOpts
+        return CascadedOpts(type=ElementType(blob[0]), num_rles=blob[1],
+                            num_deltas=blob[2], use_bp=bool(blob[3]))
     if fmt == "deflate":
         from tpucomp_torch.formats.deflate import DeflateOpts
         return DeflateOpts(algo=blob[0])

@@ -32,6 +32,9 @@ the same module, sits its plain version with the same signature.
   kernel behind the reference's single-chunk and wide wrappers.
 - :mod:`.ans_encode` — the rANS encode walk (``csrc/ans_encode.cu``), likewise,
   between the tables and the serialization in torch ops.
+- :mod:`.cascaded_expand` — both RLE expansions of a Cascaded chunk
+  (``csrc/cascaded_expand.cu``), inside :mod:`tpucomp_torch.ops
+  .cascaded_fast`'s decoder; that module's encoder is torch ops.
 - ``csrc/ans.cuh`` — the rANS warp blocks both ANS kernels run (the
   device-side API analog).
 - ``csrc/bytecopy.cuh`` — the warp byte-copy helpers they share.
@@ -124,6 +127,27 @@ def _ans_compress_batch(data, sizes, opts, out_cap):
     return ans_encode.compress_batch_wide(data, sizes, out_cap)
 
 
+def _on_card(x, what: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"the cascaded fast path ({what}) needs CUDA tensors, got {x.device}")
+
+
+def _cascaded_decompress_batch(comp, comp_sizes, out_cap):
+    """The fast path (``ops/pallas/__init__.py:168-173``) with row 26 as the
+    kernel; out_caps above 1 MiB take its gate to the general program."""
+    _on_card(comp, "decode")
+    from tpucomp_torch.ops import cascaded_fast
+    return cascaded_fast.decompress_batch(comp, comp_sizes, out_cap)
+
+
+def _cascaded_compress_batch(data, sizes, opts, out_cap):
+    """The fast encoder (``ops/pallas/__init__.py:176-180``), torch ops on the
+    card: the reference's reaches no kernel either."""
+    _on_card(data, "encode")
+    from tpucomp_torch.ops import cascaded_fast
+    return cascaded_fast.compress_batch(data, sizes, opts, out_cap)
+
+
 KERNEL_DECODERS = {
     "lz4": _lz4_decompress_batch,
     "snappy": _snappy_decompress_batch,
@@ -132,6 +156,7 @@ KERNEL_DECODERS = {
     "zstd": _zstd_decompress_batch,
     "gdeflate": _gdeflate_decompress_batch,
     "ans": _ans_decompress_batch,
+    "cascaded": _cascaded_decompress_batch,
 }
 
 KERNEL_ENCODERS = {
@@ -141,4 +166,5 @@ KERNEL_ENCODERS = {
     "zstd": _zstd_compress_batch,
     "gdeflate": _gdeflate_compress_batch,
     "ans": _ans_compress_batch,
+    "cascaded": _cascaded_compress_batch,
 }
