@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke run of tpucomp_torch: batched LZ4, Snappy, Deflate (algos
 0, 1, 2), gzip decompress, Zstandard, GDeflate (algos 0, 1, 2), ANS and
-Cascaded, and the Manager frame path with CRC32 checksums, on one NVIDIA GPU.
+Cascaded, the reference's kernel variants that no dispatch table reaches,
+and the Manager frame path with CRC32 checksums, on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``:
 
@@ -11,13 +12,18 @@ Phases, each printing its own lines; any failure ends the run with a non-zero
 exit code and no result line:
 
 1. device: name, count, and ``nvidia-smi``'s name and power limit;
-2. build: the thirteen CUDA libraries from ``tpucomp_torch/ops/cuda/csrc`` (one
+2. build: the fifteen CUDA libraries from ``tpucomp_torch/ops/cuda/csrc`` (one
    ``nvcc`` each, in parallel), with their ``-Xptxas -v`` register/shared-memory
    lines;
-3. kernel vs plain: each of the twenty-one kernels on the card against its plain
+3. kernel vs plain: each of the twenty-six kernels on the card against its plain
    version on a host copy of the same inputs (<= 8 chunks per corpus at the
    main path's 64 KiB shape, edge and hand-made streams, truncated and
-   bit-flipped streams, an out_cap that is too small; for Deflate, zlib
+   bit-flipped streams, an out_cap that is too small; rows 3 and 4 (k 1, 3,
+   4) against row 1's plain version, which is theirs, with an empty row and
+   a size of -1; rows 5 and 8, the hash-table encoders, on the head chunks,
+   a zero and a random row and cut and out-of-range sizes; row 15, the
+   serial GDeflate decoder, on rows 13-14's tiles and two corrupt tiles of
+   tests/test_torch_variants.py at out_cap 64 KiB and 256; for Deflate, zlib
    levels 0/1/6/9, libdeflate, a multi-block stream, gzip members through
    the decoder's ``starts``, and the encoder's three modes, with
    ``dyn_tables`` on the card against the CPU; for Zstandard, both wrappers
@@ -64,6 +70,11 @@ exit code and no result line:
    bit-exact round trips, the decoders reading streams staged by liblz4 /
    libsnappy / zlib level 6 / gzip / libzstd, liblz4, libsnappy, zlib,
    libdeflate and libzstd reading the port's frames, and CUDA-event timings;
+   then the variants path, counted on its own: rows 3 and 4 (k 4) on the
+   liblz4-staged streams (equal to row 1's output), rows 5 and 8 on both
+   corpora (liblz4 and libsnappy, where they load, and rows 1 and 6 read
+   every frame; ratios beside the v2 encoders'), row 15 on the port's
+   GDeflate tiles of algos 0-2 (equal to rows 13-14's output), with timings;
 5. manager: each corpus as one 64 MiB buffer through ``Manager(fmt, 65536,
    COMPUTE_AND_VERIFY)`` for LZ4, Snappy, Deflate (algo 1), Zstandard,
    GDeflate (algo 1), ANS and Cascaded (each corpus's configuration),
@@ -121,7 +132,15 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "ans_encode": ("ans_encode.cu", "tpucomp/ops/pallas/ans_encode.py:119"),
     "ans_encode_wide": ("ans_encode.cu", "tpucomp/ops/pallas/ans_encode.py:196"),
     "cascaded_expand": ("cascaded_expand.cu", "tpucomp/ops/pallas/cascaded_expand.py:48"),
+    # the reference's variants that no dispatch table reaches (the variants path)
+    "lz4_decode_single": ("lz4_decode.cu", "tpucomp/ops/pallas/lz4_decode.py:44"),
+    "lz4_decode_k": ("lz4_decode.cu", "tpucomp/ops/pallas/lz4_decodek.py:35"),
+    "lz4_encode_hash": ("hash_encode.cu", "tpucomp/ops/pallas/lz4_encode.py:43"),
+    "snappy_encode_hash": ("hash_encode.cu", "tpucomp/ops/pallas/snappy_encode.py:38"),
+    "gdeflate_decode": ("gdeflate_decode.cu", "tpucomp/ops/pallas/gdeflate_decode.py:58"),
 }
+VARIANTS = ("lz4_decode_single", "lz4_decode_k", "lz4_encode_hash", "snappy_encode_hash",
+            "gdeflate_decode")
 ALGOS = (0, 1, 2)
 CAS_ITERS = 3             # timing iterations of the Cascaded stages
 # Cascaded configurations: nvCOMP's num_RLEs=2, num_deltas=1, use_bp=1
@@ -220,8 +239,9 @@ def main() -> int:
     from tpucomp_torch.ops import cascaded_fast, match
     from tpucomp_torch.ops.cuda import (_build, ans_decode, ans_encode, cascaded_expand,
                                         deflate_decode,
-                                        deflate_encode, gdeflate_encode, gdeflate_vdecode,
-                                        lz4_decode2, lz4_encode2, snappy_decode,
+                                        deflate_encode, gdeflate_decode, gdeflate_encode,
+                                        gdeflate_vdecode, lz4_decode, lz4_decode2, lz4_decodek,
+                                        lz4_encode, lz4_encode2, snappy_decode, snappy_encode,
                                         snappy_encode2, zstd_decode, zstd_encode)
     from tpucomp_torch.utils import synth
     sys.path.insert(0, str(HERE / "tests"))
@@ -248,7 +268,12 @@ def main() -> int:
                 "ans_decode_wide": (ans_decode.decompress_batch_wide,),
                 "ans_encode": (ans_encode.walk_kernel,),
                 "ans_encode_wide": (ans_encode.walk_kernel_wide,),
-                "cascaded_expand": (cascaded_expand.expand_batch,)}
+                "cascaded_expand": (cascaded_expand.expand_batch,),
+                "lz4_decode_single": (lz4_decode.decompress_batch,),
+                "lz4_decode_k": (lz4_decodek.decompress_batch,),
+                "lz4_encode_hash": (lz4_encode.compress_batch,),
+                "snappy_encode_hash": (snappy_encode.compress_batch,),
+                "gdeflate_decode": (gdeflate_decode.decompress_batch,)}
 
     def reset_counts() -> None:
         for fns in counters.values():
@@ -396,10 +421,26 @@ def main() -> int:
         good = stage(fmt, [synth.mixed_corpus(2048, seed=33).tobytes()])[0]
         streams = (stage(fmt, head["mortgage"] + head["mixed"] + edge_raw) + [good]
                    + fuzz(good) + handmade[fmt])
+        if fmt == "lz4":    # and, of tests/test_torch_variants.py, an empty row and size -1
+            streams += [b"", good]
         dec_in = ChunkBatch.from_chunks(streams, out_caps[fmt], device="cpu")
+        if fmt == "lz4":
+            dec_in.sizes[-1] = -1
         for cap, label in ((CHUNK, "64 KiB out_cap"), (1000, "out_cap too small")):
-            compare(f"{fmt}_decode", kernel_fn, plain_fn,
-                    (dec_in.data, dec_in.sizes, cap), f"{len(streams)} streams, {label}")
+            what = f"{len(streams)} streams, {label}"
+            if fmt == "snappy":
+                compare("snappy_decode", kernel_fn, plain_fn, (dec_in.data, dec_in.sizes, cap),
+                        what)
+                continue
+            # rows 3 and 4 compute row 1's function: one plain run for the three
+            want = plain_once(("lz4_decode", "lz4_decode_single", "lz4_decode_k"), plain_fn,
+                              dec_in.data, dec_in.sizes, cap)
+            c, n = dec_in.data.to(dev), dec_in.sizes.to(dev)
+            against("lz4_decode", kernel_fn(c, n, cap), want, what)
+            against("lz4_decode_single", lz4_decode.decompress_batch(c, n, cap), want, what)
+            for k in (1, 3, 4):
+                against("lz4_decode_k", lz4_decodek.decompress_batch(c, n, cap, k=k), want,
+                        f"{what}, k {k}")
     for fmt, (kernel_fn, plain_fn, short, small_cap) in encoders.items():
         enc_in = ChunkBatch.from_chunks(enc_rows + [head["mixed"][0]] * len(short), CHUNK,
                                         device="cpu")
@@ -414,6 +455,18 @@ def main() -> int:
                            (small_cap, "out_cap too small")):
             compare(f"{fmt}_encode", kernel_fn, plain_fn, (enc_in.data, enc_in.sizes, cap),
                     f"{enc_in.num_chunks} chunks, {label}")
+    # rows 5 and 8, the hash-table scans: the head chunks, a zero and a random
+    # row, and sizes 0, 1, 13, -3 and cap + 9 (the last two clamped)
+    hash_in = ChunkBatch.from_chunks(enc_rows + [bytes(CHUNK), np.random.default_rng(8).bytes(CHUNK)]
+                                     + [head["mixed"][0]] * 5, CHUNK, device="cpu")
+    hash_in.sizes[-5:] = torch.tensor((0, 1, 13, -3, CHUNK + 9), dtype=torch.int32)
+    hash_encoders = {"lz4": (lz4_encode.compress_batch, lz4_encode.compress_batch_plain, 4096),
+                     "snappy": (snappy_encode.compress_batch, snappy_encode.compress_batch_plain,
+                                2048)}
+    for fmt, (kernel_fn, plain_fn, small_cap) in hash_encoders.items():
+        for cap, label in ((out_caps[fmt], "out_cap = bound"), (small_cap, "out_cap too small")):
+            compare(f"{fmt}_encode_hash", kernel_fn, plain_fn,
+                    (hash_in.data, hash_in.sizes, cap), f"{hash_in.num_chunks} chunks, {label}")
 
     # Deflate decode: zlib levels 6 (every head chunk) and 0/1/9, libdeflate, a
     # multi-block stream, the corrupt streams of tests/test_pallas_deflate.py:101-108,
@@ -670,6 +723,20 @@ def main() -> int:
             check(g_ok[-ngold:] == [graw[:gk], graw[gk:2 * gk], graw[2 * gk:]]
                   and g_ok[:len(g_tiles)] == g_in.chunk_list() * len(ALGOS),
                   "GDeflate: the golden tiles or the port's tiles do not decode")
+    # row 15, the serial decoder: the same tiles, and of tests/test_torch_variants.py
+    # a tile whose row is whole but its size 3 short, and one of more tokens than bytes
+    ntok = bytearray(gtile)
+    ntok[2:6] = (1 << 24).to_bytes(4, "little")
+    g15_in = ChunkBatch.from_chunks(g_dec + [gtile, bytes(ntok)], gdcap, device="cpu")
+    g15_in.sizes[-2] -= 3
+    for cap, label in ((CHUNK, "64 KiB out_cap"), (256, "out_cap 256")):
+        want = compare("gdeflate_decode", gdeflate_decode.decompress_batch,
+                       gdeflate_decode.decompress_batch_plain, (g15_in.data, g15_in.sizes, cap),
+                       f"{g15_in.num_chunks} tiles, {label}")
+        if cap == CHUNK:
+            g_ok = [want[0][i, :want[1][i]].numpy().tobytes() for i in range(len(g_tiles))]
+            check(g_ok == g_in.chunk_list() * len(ALGOS),
+                  "GDeflate row 15: the port's tiles do not decode")
 
     lap("3 gdeflate decode")
 
@@ -863,13 +930,108 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated()
     print(f"[full] launches in the main-path run: {launches}; peak device memory "
           f"{peak / 2**30:.2f} GiB")
-    check(all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}")
+    check(all(v > 0 for k, v in launches.items() if k not in VARIANTS),
+          f"a kernel was not launched: {launches}")
     check(gdeflate_encode.fixed_kernel.launches > 0 and gdeflate_encode.emit_kernel.launches > 0,
           "the GDeflate walk was not launched in both of its emitting modes")
     lap("4 main path, cascaded")
 
     kernel_ms = {k: 0.0 for k in KERNELS}
     bound = {k: 0.0 for k in KERNELS}
+
+    # the variants path: rows 3-5, 8 and 15, which no dispatch table reaches,
+    # through their own entry points at the main path's width and counted on
+    # their own: rows 3 and 4 (k 4) on the staged LZ4 streams, rows 5 and 8 on
+    # each corpus, row 15 on the port's GDeflate tiles of algos 0-2
+    reset_counts()
+    vresults = {}
+    for name, cb in batches.items():
+        sl = staged[name, "lz4"]
+        vresults[name] = {
+            "single": lz4_decode.decompress_batch(sl.data, sl.sizes, CHUNK),
+            "k": lz4_decodek.decompress_batch(sl.data, sl.sizes, CHUNK, k=4),
+            "lz4": lz4_encode.compress_batch(cb.data, cb.sizes, out_caps["lz4"]),
+            "snappy": snappy_encode.compress_batch(cb.data, cb.sizes, out_caps["snappy"]),
+            **{algo: gdeflate_decode.decompress_batch(gresults[name, algo][0].data,
+                                                      gresults[name, algo][0].sizes, CHUNK)
+               for algo in ALGOS}}
+    torch.cuda.synchronize()
+    vlaunches = read_counts()
+    print(f"[variants] launches in the variants-path run: {vlaunches}")
+    check(all(vlaunches[k] > 0 for k in VARIANTS),
+          f"a kernel of the variants path was not launched: {vlaunches}")
+    launches.update({k: vlaunches[k] for k in VARIANTS})
+    lap("4 variants path")
+
+    # rows 3 and 4 give row 1's bytes, sizes and statuses; the C libraries
+    # (where they load) and rows 1 and 6 read every frame of rows 5 and 8;
+    # row 15 gives rows 13-14's output on the port's tiles
+    hash_readers = {"lz4": lambda f_r: interop.lz4_decompress(f_r[0], len(f_r[1])) == f_r[1],
+                    "snappy": lambda f_r: interop.snappy_decompress(f_r[0]) == f_r[1]}
+    for name, v in vresults.items():
+        cb, sl = batches[name], staged[name, "lz4"]
+        B, sizes, raw_bytes = cb.num_chunks, cb.sizes, int(cb.total_bytes)
+        row1 = lz4_decode2.decompress_batch(sl.data, sl.sizes, CHUNK)
+        check(bool((row1[2] == Status.SUCCESS).all()), f"{name}: row 1 on the staged streams")
+        for key, label in (("single", "row 3"), ("k", "row 4 (k 4)")):
+            check(all(torch.equal(a, b) for a, b in zip(v[key], row1)),
+                  f"{name}: {label} differs from row 1 on the staged LZ4 streams")
+        row = {"corpus": name, "format": "variants", "chunks": B, "raw_bytes": raw_bytes,
+               "lz4_staged_by": "liblz4" if have["lz4"] else "port"}
+        for fmt in ("lz4", "snappy"):
+            out, osz, st = v[fmt]
+            check(bool((st == Status.SUCCESS).all()), f"{name}: {fmt} hash encode statuses")
+            frames = ChunkBatch(out, osz)
+            dec, dst = batched.decompress(fmt, frames, CHUNK)
+            check(bool((dst == Status.SUCCESS).all()) and torch.equal(dec.sizes, cb.sizes)
+                  and torch.equal(dec.data, cb.data),
+                  f"{name}: the dispatched {fmt} decoder does not read the hash encoder's "
+                  f"frames bit-exactly")
+            if have[fmt]:
+                check(all(pool.map(hash_readers[fmt], zip(frames.chunk_list(),
+                                                          cb.chunk_list()))),
+                      f"{name}: lib{fmt} does not read the hash encoder's frames")
+            row[f"{fmt}_read_by_lib{fmt}"] = have[fmt]
+            row[f"{fmt}_hash_ratio"] = raw_bytes / int(osz.sum())
+            row[f"{fmt}_v2_ratio"] = raw_bytes / int(results[name, fmt][0].total_bytes)
+        for algo in ALGOS:
+            _, _, gdec, gdst = gresults[name, algo]
+            check(all(torch.equal(a, b) for a, b in zip(v[algo], (gdec.data, gdec.sizes, gdst))),
+                  f"{name}: row 15 differs from rows 13-14 on the port's algo-{algo} tiles")
+        gc1 = gresults[name, 1][0]
+        t = {k: time_ms(torch, fn) for k, fn in (
+            ("lz4_decode_ms", lambda: lz4_decode2.decompress_batch(sl.data, sl.sizes, CHUNK)),
+            ("lz4_decode_single_ms", lambda: lz4_decode.decompress_batch(sl.data, sl.sizes,
+                                                                         CHUNK)),
+            *((f"lz4_decode_k{k}_ms",
+               lambda k=k: lz4_decodek.decompress_batch(sl.data, sl.sizes, CHUNK, k=k))
+              for k in (1, 3, 4, 32)),
+            ("lz4_encode_hash_ms", lambda: lz4_encode.compress_batch(cb.data, sizes,
+                                                                     out_caps["lz4"])),
+            ("snappy_encode_hash_ms", lambda: snappy_encode.compress_batch(cb.data, sizes,
+                                                                           out_caps["snappy"])),
+            ("gdeflate_decode_ms", lambda: gdeflate_decode.decompress_batch(gc1.data, gc1.sizes,
+                                                                            CHUNK)),
+            ("gdeflate_vdecode_ms", lambda: gdeflate_vdecode.decompress_batch(gc1.data,
+                                                                              gc1.sizes, CHUNK)))}
+        kernel_ms["lz4_decode_single"] += t["lz4_decode_single_ms"]
+        kernel_ms["lz4_decode_k"] += t["lz4_decode_k4_ms"]
+        kernel_ms["lz4_encode_hash"] += t["lz4_encode_hash_ms"]
+        kernel_ms["snappy_encode_hash"] += t["snappy_encode_hash_ms"]
+        kernel_ms["gdeflate_decode"] += t["gdeflate_decode_ms"]
+        dec_bound = bytes_bound_ms(int(sl.total_bytes) + 4 * B, B * CHUNK + 8 * B)
+        bound["lz4_decode_single"] += dec_bound
+        bound["lz4_decode_k"] += dec_bound
+        for fmt in ("lz4", "snappy"):
+            bound[f"{fmt}_encode_hash"] += bytes_bound_ms(raw_bytes + 4 * B,
+                                                          B * out_caps[fmt] + 8 * B)
+        bound["gdeflate_decode"] += bytes_bound_ms(int(gc1.total_bytes) + 4 * B,
+                                                   B * CHUNK + 8 * B)
+        row.update(t)
+        print(f"[variants] {json.dumps(row)}")
+    del vresults
+    lap("4 checks and timings, variants")
+
     readers = {"lz4": lambda f, r: interop.lz4_decompress(f, len(r)) == r,
                "snappy": lambda f, r: interop.snappy_decompress(f) == r}
     emitters = {"lz4": lz4_encode2.emit_kernel, "snappy": snappy_encode2.emit_kernel}
@@ -1293,7 +1455,7 @@ def main() -> int:
     # ANS dispatches the wide wrappers (rows 23, 25)
     check(all(v > 0 for k, v in mgr_launches.items()
               if k not in ("deflate_encode_fixed", "zstd_decode_big", "ans_decode",
-                           "ans_encode")),
+                           "ans_encode", *VARIANTS)),
           f"a kernel was not launched on the Manager path: {mgr_launches}")
     for (name, fmt), (frame, mgr, cfg, out) in frames.items():
         buf = bufs[name]
@@ -1362,10 +1524,14 @@ def main() -> int:
           "through their own wrappers in that run); cascaded_expand: the three Cascaded "
           "configurations summed, on the fast decoder's _stage1 outputs of the port's "
           "frames, bound by runs1[:n1] and runs2[:n2] (4 B each), the values [:n2] (8 B) "
-          "and the scalars read and 8 B an element of every row written, twice where "
-          "nr == 2; plain_ms: the plain version on the "
+          "and the scalars read and 8 B an element of every row written; "
+          "lz4_decode_single, lz4_decode_k (k 4), lz4_encode_hash, snappy_encode_hash and "
+          "gdeflate_decode: the variants path (rows 3-4 on the staged LZ4 streams, row 15 "
+          "on the port's algo-1 tiles), launches from its own run; plain_ms: the plain "
+          "version on the "
           "phase-3 inputs (host; each ANS plain version ran once for both of its kernels, "
-          "its time stands beside each); no PyTorch call computes LZ4, Snappy, Deflate, "
+          "and row 1's for rows 1, 3 and 4, its time stands beside each); no PyTorch "
+          "call computes LZ4, Snappy, Deflate, "
           "Zstandard, GDeflate, rANS or this two-pass RLE expansion")
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi}")

@@ -31,9 +31,11 @@ from tpucomp_torch.interop import cpu as interop
 from tpucomp_torch.manager import ChecksumPolicy, Manager, create_manager
 from tpucomp_torch.ops import cascaded_fast, match
 from tpucomp_torch.ops.cuda import (ans_decode, ans_encode, cascaded_expand, deflate_decode,
-                                    deflate_encode,
-                                    gdeflate_encode, gdeflate_vdecode, lz4_decode2, lz4_encode2,
-                                    snappy_decode, snappy_encode2, zstd_decode, zstd_encode)
+                                    deflate_encode, gdeflate_decode,
+                                    gdeflate_encode, gdeflate_vdecode, lz4_decode, lz4_decode2,
+                                    lz4_decodek, lz4_encode, lz4_encode2,
+                                    snappy_decode, snappy_encode, snappy_encode2, zstd_decode,
+                                    zstd_encode)
 from tpucomp_torch.utils import synth
 
 pytestmark = pytest.mark.cuda
@@ -669,3 +671,70 @@ def test_cascaded_manager_on_card(card):
     assert out.is_cuda and cfg.get_status() == Status.SUCCESS
     assert out.cpu().numpy().tobytes() == buf
 
+
+
+# ------------------------------------- the reference's variants (rows 3-5, 8, 15) ---
+
+@pytest.mark.parametrize("k", [None, 1, 3, 4, 32, 33])
+def test_lz4_decode_variant_kernels_equal_plain(card, k):
+    """Rows 3 (``k`` None: one chunk a block) and 4 (``k`` chunks a block,
+    ``min(k, 32)`` warps): row 1's plain version, which is theirs."""
+    if not interop.available()["lz4"]:
+        pytest.skip("liblz4 is not installed")
+    cb = ChunkBatch.from_chunks(_streams(65536), flz4.max_compressed_chunk_size(65536),
+                                device="cpu")
+    c, s = cb.data.to(card), cb.sizes.to(card)
+    mod = lz4_decode if k is None else lz4_decodek
+    for oc in (65536, 1000):
+        before = mod.decompress_batch.launches
+        got = (lz4_decode.decompress_batch(c, s, oc) if k is None
+               else lz4_decodek.decompress_batch(c, s, oc, k=k))
+        torch.cuda.synchronize()
+        assert mod.decompress_batch.launches == before + 1
+        assert _equal(got, lz4_decode2.decompress_batch_plain(cb.data, cb.sizes, oc))
+
+
+@pytest.mark.parametrize("fmt", ["lz4", "snappy"])
+def test_hash_encode_kernels_equal_plain(card, fmt):
+    """Rows 5 and 8: the hash-table scan at out_cap = bound and 2048, on
+    64 KiB rows, cut sizes and sizes outside [0, cap]."""
+    cb = _batch(65536, seed=5, short_sizes=(0, 1, 12, 13, 17, -3, 70000))
+    mod, bound = ((lz4_encode, flz4.max_compressed_chunk_size(65536)) if fmt == "lz4"
+                  else (snappy_encode, fsnappy.max_compressed_chunk_size(65536)))
+    for oc in (bound, 2048):
+        before = mod.compress_batch.launches
+        got = mod.compress_batch(cb.data.to(card), cb.sizes.to(card), oc)
+        torch.cuda.synchronize()
+        assert mod.compress_batch.launches == before + 1
+        assert _equal(got, mod.compress_batch_plain(cb.data, cb.sizes, oc))
+
+
+def test_gdeflate_serial_decode_kernel_equals_plain(card):
+    """Row 15 on the port's tiles of every algo (64 KiB rows, distances
+    above 49152), cuts (a row kept whole with its size 3 short), flips,
+    a future version and a btype-3 tile, at out_cap 65536 and 256."""
+    cb = _gdeflate_rows()
+    oc = fgdeflate.max_compressed_chunk_size(65536)
+    tiles = []
+    for algo in (0, 1, 2):
+        comp, _ = batched.compress("gdeflate", cb, fgdeflate.GdeflateOpts(algo), oc)
+        tiles += comp.chunk_list()
+    good = tiles[8]
+    rng = np.random.default_rng(15)
+    tiles += [good[:k] for k in (24, 80, len(good) // 2)]
+    for _ in range(6):
+        b = bytearray(good)
+        b[rng.integers(0, len(good))] ^= 1 << rng.integers(0, 8)
+        tiles.append(bytes(b))
+    tiles += [good[:1] + b"\x02" + good[2:], b"\x03" + bytes(16), b"", good]
+    tc = ChunkBatch.from_chunks(tiles, oc, device="cpu")
+    tc.sizes[-1] -= 3
+    for out_cap in (65536, 256):
+        before = gdeflate_decode.decompress_batch.launches
+        got = gdeflate_decode.decompress_batch(tc.data.to(card), tc.sizes.to(card), out_cap)
+        torch.cuda.synchronize()
+        assert gdeflate_decode.decompress_batch.launches == before + 1
+        want = gdeflate_decode.decompress_batch_plain(tc.data, tc.sizes, out_cap)
+        assert _equal(got, want)
+        if out_cap == 65536:
+            assert (want[2][:24] == Status.SUCCESS).all()

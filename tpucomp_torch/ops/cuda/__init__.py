@@ -1,9 +1,10 @@
 """Hand-written Hopper kernels — the kernel layer of the port.
 
 Port of :mod:`tpucomp.ops.pallas` (``tpucomp/ops/pallas/__init__.py:44-56,
-85-97,154-165,183-281``).  Each kernel is CUDA C++ for ``sm_90a`` under ``csrc/``,
-built at first use by :mod:`._build` and called through ctypes; beside it, in
-the same module, sits its plain version with the same signature.
+85-97,154-165,183-281``) and of the kernel variants beside it.  Each kernel
+is CUDA C++ for ``sm_90a`` under ``csrc/``, built at first use by
+:mod:`._build` and called through ctypes; beside it, in the same module,
+sits its plain version with the same signature.
 
 - :mod:`.lz4_decode2` — LZ4 block decode (``csrc/lz4_decode.cu``).
 - :mod:`.lz4_encode2` — LZ4 emitter over :func:`tpucomp_torch.ops.match
@@ -35,9 +36,18 @@ the same module, sits its plain version with the same signature.
 - :mod:`.cascaded_expand` — both RLE expansions of a Cascaded chunk
   (``csrc/cascaded_expand.cu``), inside :mod:`tpucomp_torch.ops
   .cascaded_fast`'s decoder; that module's encoder is torch ops.
+- the reference's variants that no dispatch table reaches, each behind its
+  own entry point with the reference's signature: :mod:`.lz4_decode` (one
+  chunk a block) and :mod:`.lz4_decodek` (``k`` chunks a block), row 1's
+  walk in ``csrc/lz4_decode.cu``; :mod:`.lz4_encode` and
+  :mod:`.snappy_encode`, the hash-table encoders (``csrc/hash_encode.cu``);
+  :mod:`.gdeflate_decode`, the serial tile decoder
+  (``csrc/gdeflate_decode.cu``).
 - ``csrc/ans.cuh`` — the rANS warp blocks both ANS kernels run (the
   device-side API analog).
-- ``csrc/bytecopy.cuh`` — the warp byte-copy helpers they share.
+- ``csrc/bytecopy.cuh`` — the warp byte-copy helpers they share;
+  ``csrc/emit.cuh`` — the LZ4 and Snappy element emission the four LZ4 and
+  Snappy encoders share.
 
 ``KERNEL_DECODERS`` / ``KERNEL_ENCODERS`` map a format name to the kernel
 path, a drop-in for the registry's ``decompress_batch`` / ``compress_batch``

@@ -1,12 +1,21 @@
-// Batched LZ4 block decode, one warp per chunk.
+// Batched LZ4 block decode, one warp per chunk, behind three entry points.
 //
-// Replaces the TPU kernel tpucomp/ops/pallas/lz4_decode2.py::_kernel (called
-// by decompress_batch at lz4_decode2.py:312).  That kernel walks two chunks
-// per grid step with their token preludes interleaved, so the TPU's in-order
-// scalar core overlaps two load chains, and picks a fast, medium or slow path
-// per token.  Those are latency tricks of the scalar core; the result is the
-// slow path's (lz4_decode2.py:186-238) plus the epilogue (:274-285), and
-// that is what this kernel computes.
+// Replaces three TPU kernels that compute one function:
+//  * tpucomp/ops/pallas/lz4_decode2.py::_kernel (called by decompress_batch
+//    at lz4_decode2.py:312; kernel row 1): tpucomp_lz4_decode, four warps a
+//    block;
+//  * tpucomp/ops/pallas/lz4_decode.py::_kernel (called by _pallas_decode at
+//    lz4_decode.py:302; row 3), one chunk a grid step:
+//    tpucomp_lz4_decode_single, one warp a block;
+//  * tpucomp/ops/pallas/lz4_decodek.py::_kernel (called at lz4_decodek.py:296;
+//    row 4), K chunks a grid step with their token walks interleaved:
+//    tpucomp_lz4_decode_k, min(K, 32) warps a block, K chunks a block.
+// The TPU kernels interleave two or K chunks so that the in-order scalar
+// core overlaps their load chains, and lz4_decode2 picks a fast, medium or
+// slow path per token.  Those are latency tricks of the scalar core; all
+// three give the slow path's result (lz4_decode2.py:186-238) plus the
+// epilogue (:274-285), and that is what decode_chunk below computes for
+// every entry point.  Here the warp scheduler overlaps the chunks' chains.
 //
 // Bound: bytes.  A call must read each compressed byte once and write each
 // output byte once (B x out_cap, the zero tail included); there is no
@@ -62,14 +71,12 @@ __device__ __forceinline__ void read_ext(const Row& src, long long csize,
   }
 }
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-lz4_decode_kernel(const uint8_t* __restrict__ comp,
-                  const int32_t* __restrict__ comp_sizes, int batch,
-                  int comp_cap, uint8_t* __restrict__ out, int out_cap,
-                  int32_t* __restrict__ out_sizes,
-                  int32_t* __restrict__ statuses) {
-  const int chunk = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
-  if (chunk >= batch) return;  // the whole warp leaves together
+// One chunk, walked by the calling warp (all 32 lanes, converged).
+__device__ __forceinline__ void decode_chunk(const uint8_t* __restrict__ comp,
+                                             const int32_t* __restrict__ comp_sizes,
+                                             int comp_cap, uint8_t* __restrict__ out,
+                                             int out_cap, int32_t* __restrict__ out_sizes,
+                                             int32_t* __restrict__ statuses, int chunk) {
   const int lane = threadIdx.x & 31;
   const Row src{comp + static_cast<size_t>(chunk) * comp_cap, comp_cap};
   uint8_t* dst = out + static_cast<size_t>(chunk) * out_cap;
@@ -112,6 +119,45 @@ lz4_decode_kernel(const uint8_t* __restrict__ comp,
   }
 }
 
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+lz4_decode_kernel(const uint8_t* __restrict__ comp,
+                  const int32_t* __restrict__ comp_sizes, int batch,
+                  int comp_cap, uint8_t* __restrict__ out, int out_cap,
+                  int32_t* __restrict__ out_sizes,
+                  int32_t* __restrict__ statuses) {
+  const int chunk = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
+  if (chunk >= batch) return;  // the whole warp leaves together
+  decode_chunk(comp, comp_sizes, comp_cap, out, out_cap, out_sizes, statuses, chunk);
+}
+
+// Row 3: one warp a block, one chunk a block.
+__global__ void __launch_bounds__(32)
+lz4_decode_single_kernel(const uint8_t* __restrict__ comp,
+                         const int32_t* __restrict__ comp_sizes, int comp_cap,
+                         uint8_t* __restrict__ out, int out_cap,
+                         int32_t* __restrict__ out_sizes,
+                         int32_t* __restrict__ statuses) {
+  decode_chunk(comp, comp_sizes, comp_cap, out, out_cap, out_sizes, statuses, blockIdx.x);
+}
+
+// Row 4: a block takes chunks [k * blockIdx.x, k * blockIdx.x + k), its
+// blockDim.x / 32 = min(k, 32) warps striding over them.
+__global__ void __launch_bounds__(1024)
+lz4_decode_k_kernel(const uint8_t* __restrict__ comp,
+                    const int32_t* __restrict__ comp_sizes, int batch,
+                    int comp_cap, uint8_t* __restrict__ out, int out_cap,
+                    int32_t* __restrict__ out_sizes,
+                    int32_t* __restrict__ statuses, int k) {
+  const long long first = static_cast<long long>(blockIdx.x) * k;
+  const int warps = blockDim.x / 32;
+  for (int j = threadIdx.x / 32; j < k; j += warps) {
+    const long long chunk = first + j;
+    if (chunk >= batch) return;  // the whole warp leaves together
+    decode_chunk(comp, comp_sizes, comp_cap, out, out_cap, out_sizes, statuses,
+                 static_cast<int>(chunk));
+  }
+}
+
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
@@ -124,5 +170,28 @@ extern "C" int tpucomp_lz4_decode(const uint8_t* comp, const int32_t* comp_sizes
   lz4_decode_kernel<<<blocks, kWarpsPerBlock * 32, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       comp, comp_sizes, batch, comp_cap, out, out_cap, out_sizes, statuses);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tpucomp_lz4_decode_single(const uint8_t* comp, const int32_t* comp_sizes,
+                                         int batch, int comp_cap, uint8_t* out,
+                                         int out_cap, int32_t* out_sizes,
+                                         int32_t* statuses, void* stream) {
+  if (batch <= 0) return 0;
+  lz4_decode_single_kernel<<<batch, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      comp, comp_sizes, comp_cap, out, out_cap, out_sizes, statuses);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tpucomp_lz4_decode_k(const uint8_t* comp, const int32_t* comp_sizes,
+                                    int batch, int comp_cap, uint8_t* out,
+                                    int out_cap, int32_t* out_sizes,
+                                    int32_t* statuses, int k, void* stream) {
+  if (batch <= 0) return 0;
+  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = static_cast<int>((static_cast<long long>(batch) + k - 1) / k);
+  lz4_decode_k_kernel<<<blocks, 32 * (k < 32 ? k : 32), 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      comp, comp_sizes, batch, comp_cap, out, out_cap, out_sizes, statuses, k);
   return static_cast<int>(cudaGetLastError());
 }

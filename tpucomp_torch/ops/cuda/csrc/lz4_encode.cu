@@ -38,41 +38,14 @@
 #include <cuda_runtime.h>
 
 #include "bytecopy.cuh"
+#include "emit.cuh"
 
 namespace {
 
-constexpr int kSuccess = 0;
-constexpr int kOutputTooSmall = 15;
 constexpr int kMinMatch = 4;
 constexpr int kMfLimit = 12;
 constexpr int kLastLiterals = 5;
 constexpr int kWarpsPerBlock = 4;
-
-// LZ4 length extension: k / 255 bytes of 255, then k % 255.
-__device__ __forceinline__ int put_ext(const tpucomp::OutRow& w, int o, int k) {
-  const int n255 = k / 255;
-  w.fill(o, o + n255, 255);
-  w.put(o + n255, k % 255);
-  return o + n255 + 1;
-}
-
-// One sequence: token, literal-length extension, ll literals from `lit`,
-// then (when ml > 0) the 2-byte offset and the match-length extension.
-__device__ __forceinline__ int emit_seq(const tpucomp::OutRow& w, int op,
-                                        const uint8_t* lit, int ll, int ml,
-                                        int off) {
-  w.put(op++, (min(ll, 15) << 4) | min(max(ml - kMinMatch, 0), 15));
-  if (ll >= 15) op = put_ext(w, op, ll - 15);
-  w.copy(op, lit, ll);
-  op += ll;
-  if (ml > 0) {
-    w.put(op, off & 0xFF);
-    w.put(op + 1, off >> 8);
-    op += 2;
-    if (ml - kMinMatch >= 15) op = put_ext(w, op, ml - kMinMatch - 15);
-  }
-  return op;
-}
 
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 lz4_encode_kernel(const uint8_t* __restrict__ data,
@@ -117,18 +90,11 @@ lz4_encode_kernel(const uint8_t* __restrict__ data,
       --src2;
     }
     const int ml = (nm - nm2) + kMinMatch + max(l4, l8);
-    op = emit_seq(w, op, in + anchor, nm2 - anchor, ml, nm - src);
+    op = tpucomp::lz4_emit_seq(w, op, in + anchor, nm2 - anchor, ml, nm - src);
     anchor = scan = nm2 + ml;
   }
-  op = emit_seq(w, op, in + anchor, size - anchor, 0, 0);
-  const bool too_big = op > out_cap;
-  const int osz = too_big ? 0 : op;
-  __syncwarp();  // order lane 0's single-byte stores before the zero fill
-  tpucomp::warp_fill(w.p, osz, out_cap, 0, lane);
-  if (lane == 0) {
-    out_sizes[chunk] = osz;
-    statuses[chunk] = too_big ? kOutputTooSmall : kSuccess;
-  }
+  op = tpucomp::lz4_emit_seq(w, op, in + anchor, size - anchor, 0, 0);
+  tpucomp::finish_row(w, op, out_sizes, statuses, chunk);
 }
 
 }  // namespace

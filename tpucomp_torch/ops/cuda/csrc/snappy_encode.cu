@@ -44,64 +44,12 @@
 #include <cuda_runtime.h>
 
 #include "bytecopy.cuh"
+#include "emit.cuh"
 
 namespace {
 
-constexpr int kSuccess = 0;
-constexpr int kOutputTooSmall = 15;
 constexpr int kMinMatch = 4;
 constexpr int kWarpsPerBlock = 4;
-
-// Literal element: tag (and 1-3 length bytes), then ll bytes from `lit`.
-__device__ __forceinline__ int emit_literals(const tpucomp::OutRow& w, int op,
-                                             const uint8_t* lit, int ll) {
-  const int n = ll - 1;
-  if (ll <= 60) {
-    w.put(op++, n << 2);
-  } else if (ll <= 256) {
-    w.put(op++, 60 << 2);
-    w.put(op++, n);
-  } else if (ll <= 65536) {
-    w.put(op++, 61 << 2);
-    w.put(op++, n & 0xFF);
-    w.put(op++, n >> 8);
-  } else {
-    w.put(op++, 62 << 2);
-    w.put(op++, n & 0xFF);
-    w.put(op++, (n >> 8) & 0xFF);
-    w.put(op++, (n >> 16) & 0xFF);
-  }
-  w.copy(op, lit, ll);
-  return op + ll;
-}
-
-// One copy element of ml <= 64 bytes: copy-1 where it fits, else copy-2.
-__device__ __forceinline__ int emit_copy2(const tpucomp::OutRow& w, int op,
-                                          int off, int ml) {
-  if (off < 2048 && ml >= 4 && ml <= 11) {
-    w.put(op, 1 | ((ml - 4) << 2) | ((off >> 8) << 5));
-    w.put(op + 1, off & 0xFF);
-    return op + 2;
-  }
-  w.put(op, 2 | ((ml - 1) << 2));
-  w.put(op + 1, off & 0xFF);
-  w.put(op + 2, off >> 8);
-  return op + 3;
-}
-
-// A match of any length: the reference encoder's 64/60-byte split.
-__device__ __forceinline__ int emit_copy(const tpucomp::OutRow& w, int op,
-                                         int off, int ml) {
-  while (ml >= 68) {
-    op = emit_copy2(w, op, off, 64);
-    ml -= 64;
-  }
-  if (ml > 64) {
-    op = emit_copy2(w, op, off, 60);
-    ml -= 60;
-  }
-  return emit_copy2(w, op, off, ml);
-}
 
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 snappy_encode_kernel(const uint8_t* __restrict__ data,
@@ -125,13 +73,7 @@ snappy_encode_kernel(const uint8_t* __restrict__ data,
   const int size = min(max(sizes[chunk], 0), cap);
   const int mflimit = size - kMinMatch + 1;
 
-  int op = 0;
-  unsigned rem = static_cast<unsigned>(size);  // varint32 preamble
-  while (rem >= 0x80) {
-    w.put(op++, (rem & 0x7F) | 0x80);
-    rem >>= 7;
-  }
-  w.put(op++, rem);
+  int op = tpucomp::snappy_put_varint(w, 0, size);
 
   int anchor = 0, scan = 0;
   while (scan < mflimit) {
@@ -153,19 +95,12 @@ snappy_encode_kernel(const uint8_t* __restrict__ data,
       --src2;
     }
     const int ml = (nm - nm2) + kMinMatch + max(l4, l8);
-    if (nm2 > anchor) op = emit_literals(w, op, in + anchor, nm2 - anchor);
-    op = emit_copy(w, op, nm - src, ml);
+    if (nm2 > anchor) op = tpucomp::snappy_emit_literals(w, op, in + anchor, nm2 - anchor);
+    op = tpucomp::snappy_emit_copy(w, op, nm - src, ml);
     anchor = scan = nm2 + ml;
   }
-  if (size > anchor) op = emit_literals(w, op, in + anchor, size - anchor);
-  const bool too_big = op > out_cap;
-  const int osz = too_big ? 0 : op;
-  __syncwarp();  // order lane 0's single-byte stores before the zero fill
-  tpucomp::warp_fill(w.p, osz, out_cap, 0, lane);
-  if (lane == 0) {
-    out_sizes[chunk] = osz;
-    statuses[chunk] = too_big ? kOutputTooSmall : kSuccess;
-  }
+  if (size > anchor) op = tpucomp::snappy_emit_literals(w, op, in + anchor, size - anchor);
+  tpucomp::finish_row(w, op, out_sizes, statuses, chunk);
 }
 
 }  // namespace

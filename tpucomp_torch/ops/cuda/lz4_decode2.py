@@ -100,9 +100,12 @@ def decompress_batch_plain(comp: torch.Tensor, comp_sizes: torch.Tensor,
             torch.from_numpy(stat).to(dev))
 
 
-def decompress_batch(comp: torch.Tensor, comp_sizes: torch.Tensor, out_cap: int):
-    """Launch ``csrc/lz4_decode.cu`` on ``comp``'s card, on the current stream.
-    Raises for tensors that are not on a CUDA device."""
+def launch(entry: str, comp: torch.Tensor, comp_sizes: torch.Tensor, out_cap: int,
+           *extra: int):
+    """Check the inputs and launch ``entry``, one of the C entry points of
+    ``csrc/lz4_decode.cu``, on ``comp``'s card, on the current stream;
+    ``extra`` are its int arguments after ``statuses``.  Raises for tensors
+    that are not on a CUDA device and when the launch fails."""
     if comp.device.type != "cuda":
         raise ValueError(f"the LZ4 decode kernel needs CUDA tensors, got {comp.device}")
     if comp.dtype != torch.uint8 or comp.dim() != 2:
@@ -115,20 +118,25 @@ def decompress_batch(comp: torch.Tensor, comp_sizes: torch.Tensor, out_cap: int)
     out = torch.empty((B, out_cap), dtype=torch.uint8, device=comp.device)
     osz = torch.empty((B,), dtype=torch.int32, device=comp.device)
     stat = torch.empty((B,), dtype=torch.int32, device=comp.device)
-    lib = _build.load("lz4_decode")
-    fn = lib.tpucomp_lz4_decode
+    fn = getattr(_build.load("lz4_decode"), entry)
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, i, i, p, i, p, p, p]
+    fn.argtypes = [p, p, i, i, p, i, p, p] + [i] * len(extra) + [p]
     fn.restype = i
     with torch.cuda.device(comp.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(comp.data_ptr(), comp_sizes.data_ptr(), B, comp_cap,
-                out.data_ptr(), out_cap, osz.data_ptr(), stat.data_ptr(), stream)
+        rc = fn(comp.data_ptr(), comp_sizes.data_ptr(), B, comp_cap, out.data_ptr(),
+                out_cap, osz.data_ptr(), stat.data_ptr(), *extra, stream)
     if rc != 0:
-        raise RuntimeError(f"lz4_decode kernel launch failed: cudaError {rc}")
-    decompress_batch.launches += 1
+        raise RuntimeError(f"{entry} kernel launch failed: cudaError {rc}")
     return out, osz, stat
 
 
-decompress_batch.launches = 0
+def decompress_batch(comp: torch.Tensor, comp_sizes: torch.Tensor, out_cap: int):
+    """Launch ``csrc/lz4_decode.cu`` (four chunks a block) on ``comp``'s card,
+    on the current stream.  Raises for tensors that are not on a CUDA device."""
+    result = launch("tpucomp_lz4_decode", comp, comp_sizes, out_cap)
+    decompress_batch.launches += 1
+    return result
 
+
+decompress_batch.launches = 0
