@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """On-card smoke run of tpucomp_torch: batched LZ4, Snappy, Deflate (algos
-0, 1, 2), gzip decompress, Zstandard, GDeflate (algos 0, 1, 2), ANS and
-Cascaded, the reference's kernel variants that no dispatch table reaches,
-and the Manager frame path with CRC32 checksums, on one NVIDIA GPU.
+0, 1, 2), gzip decompress, Zstandard (up to 16 MiB chunks), GDeflate (algos
+0, 1, 2), ANS and Cascaded, the reference's kernel variants that no dispatch
+table reaches, the lowering probes, and the Manager frame path with CRC32
+checksums, on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``:
 
@@ -12,10 +13,10 @@ Phases, each printing its own lines; any failure ends the run with a non-zero
 exit code and no result line:
 
 1. device: name, count, and ``nvidia-smi``'s name and power limit;
-2. build: the fifteen CUDA libraries from ``tpucomp_torch/ops/cuda/csrc`` (one
+2. build: the sixteen CUDA libraries from ``tpucomp_torch/ops/cuda/csrc`` (one
    ``nvcc`` each, in parallel), with their ``-Xptxas -v`` register/shared-memory
    lines;
-3. kernel vs plain: each of the twenty-six kernels on the card against its plain
+3. kernel vs plain: each of the thirty-seven kernels on the card against its plain
    version on a host copy of the same inputs (<= 8 chunks per corpus at the
    main path's 64 KiB shape, edge and hand-made streams, truncated and
    bit-flipped streams, an out_cap that is too small; rows 3 and 4 (k 1, 3,
@@ -48,8 +49,14 @@ exit code and no result line:
    below the header, out_cap 1000 and tests/golden/ans.bin; for Cascaded,
    the RLE expansion on whole rows of the fast decoder's ``_stage1`` outputs
    of each configuration's head chunks, hand-made run streams and corrupt
-   ones); exact equality of bytes, sizes, statuses, tokens, table words and
-   values;
+   ones; for row 27, the eleven lowering probes on the reference's inputs
+   plus two more scalars each (out of range, negative, overlapping; p7 also
+   at s = 1) and a second uint8 block, whole outputs, then ``python -m
+   tpucomp_torch.ops.cuda._probe``, which must exit 0); exact equality of
+   bytes, sizes, statuses, tokens, table words and values; and the
+   Zstandard multi-block encoder (torch ops) on the card against its host
+   run, frame for frame, on 4 rows of 128 KiB and each corpus's head
+   256 KiB as one row, libzstd reading every frame;
 4. full width: two 64 MiB corpora from seed 42 (``mortgage_like``,
    ``mixed_corpus``) cut into 1024 chunks of 64 KiB, one batch each, through
    ``batched.compress`` / ``batched.decompress`` (backend "auto") for LZ4,
@@ -75,6 +82,14 @@ exit code and no result line:
    corpora (liblz4 and libsnappy, where they load, and rows 1 and 6 read
    every frame; ratios beside the v2 encoders'), row 15 on the port's
    GDeflate tiles of algos 0-2 (equal to rows 13-14's output), with timings;
+   the probes path, counted on its own: ``_probe.main()`` and ``main2()``,
+   then each probe timed beside the one PyTorch call of the same function;
+   the Zstandard 16 MiB compress path, counted on its own: each corpus as 4
+   chunks of 16 MiB through ``batched.compress("zstd")`` (the multi-block
+   encoder) and back through ``batched.decompress`` (row 19), libzstd
+   reading every frame, with the compress time, the ratio beside libzstd
+   level 3's and the match finder, Huffman literals and sequential scans
+   each timed alone;
 5. manager: each corpus as one 64 MiB buffer through ``Manager(fmt, 65536,
    COMPUTE_AND_VERIFY)`` for LZ4, Snappy, Deflate (algo 1), Zstandard,
    GDeflate (algo 1), ANS and Cascaded (each corpus's configuration),
@@ -82,6 +97,7 @@ exit code and no result line:
    ``decompress`` (bit-exact, ``SUCCESS``), a flipped payload byte
    (``ERROR_BAD_CHECKSUM``), the frame without its CRC tables through a
    ``NO_COMPUTE_NO_VERIFY`` manager, with its own launch counts and timings;
+   then ``Manager("zstd", 16 MiB, COMPUTE_AND_VERIFY)`` over each buffer;
 6. the ``kernels`` JSON line, ``nvidia-smi``'s line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -138,9 +154,16 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "lz4_encode_hash": ("hash_encode.cu", "tpucomp/ops/pallas/lz4_encode.py:43"),
     "snappy_encode_hash": ("hash_encode.cu", "tpucomp/ops/pallas/snappy_encode.py:38"),
     "gdeflate_decode": ("gdeflate_decode.cu", "tpucomp/ops/pallas/gdeflate_decode.py:58"),
+    # row 27, the lowering probes (the probes path, behind their own entry point)
+    **{f"probe_{p}": ("probe.cu", f"tpucomp/ops/pallas/_probe.py:{line}")
+       for p, line in (("p1", 33), ("p2", 47), ("p3", 61), ("p4", 81), ("p5", 96),
+                       ("p6", 112), ("p7", 143), ("p8", 163), ("p9", 176), ("p10", 219),
+                       ("p11", 239))},
 }
 VARIANTS = ("lz4_decode_single", "lz4_decode_k", "lz4_encode_hash", "snappy_encode_hash",
             "gdeflate_decode")
+PROBES = tuple(k for k in KERNELS if k.startswith("probe_"))
+OFF_MAIN = VARIANTS + PROBES   # kernels of their own paths, counted on their own
 ALGOS = (0, 1, 2)
 CAS_ITERS = 3             # timing iterations of the Cascaded stages
 # Cascaded configurations: nvCOMP's num_RLEs=2, num_deltas=1, use_bp=1
@@ -182,6 +205,25 @@ def time_ms(torch, fn, iters=ITERS, warmup=WARMUP) -> float:
 
 def bytes_bound_ms(read: int, written: int) -> float:
     return (read + written) / HBM_BYTES_PER_S * 1e3
+
+
+def probe_bytes(name: str, x, v) -> tuple[int, int]:
+    """(read, written) bytes that probe ``name`` must move on block ``x`` at
+    scalar ``v``: each element it reads once, each it writes once, the
+    scalar included; never the INT32_MIN fill of the lanes it leaves."""
+    row, s = 128 * 4, (0 if v is None else 4)
+    if name in ("p1", "p11"):                  # one element
+        return s + 4, 4
+    if name in ("p3", "p6", "p10"):            # the staged row
+        return s + x.numel() * 4, 4
+    if name == "p4":                           # two rows, plus one
+        return s + 2 * row, 2 * row
+    if name == "p5":                           # row 0's lanes from off on
+        n = 4 * (128 - min(max(v, 0), 128))
+        return s + n, n
+    if name == "p9":                           # lanes below n; x unused
+        return s, 4 * min(max(v, 0), 128)
+    return s + x.numel() * x.element_size(), x.numel() * 4   # p2, p7, p8: the block
 
 
 def varint(n: int) -> bytes:
@@ -237,7 +279,7 @@ def main() -> int:
     from tpucomp_torch.interop import cpu as interop
     from tpucomp_torch.manager import ChecksumPolicy, Manager, create_manager
     from tpucomp_torch.ops import cascaded_fast, match
-    from tpucomp_torch.ops.cuda import (_build, ans_decode, ans_encode, cascaded_expand,
+    from tpucomp_torch.ops.cuda import (_build, _probe, ans_decode, ans_encode, cascaded_expand,
                                         deflate_decode,
                                         deflate_encode, gdeflate_decode, gdeflate_encode,
                                         gdeflate_vdecode, lz4_decode, lz4_decode2, lz4_decodek,
@@ -273,7 +315,8 @@ def main() -> int:
                 "lz4_decode_k": (lz4_decodek.decompress_batch,),
                 "lz4_encode_hash": (lz4_encode.compress_batch,),
                 "snappy_encode_hash": (snappy_encode.compress_batch,),
-                "gdeflate_decode": (gdeflate_decode.decompress_batch,)}
+                "gdeflate_decode": (gdeflate_decode.decompress_batch,),
+                **{f"probe_{p}": (fn,) for p, fn in _probe.PROBES.items()}}
 
     def reset_counts() -> None:
         for fns in counters.values():
@@ -863,6 +906,51 @@ def main() -> int:
 
     lap("3 cascaded")
 
+    # row 27, the lowering probes: each kernel on _probe.CHECK_CASES (the
+    # reference's inputs, two more scalars each, out of range, negative or
+    # overlapping, p7 also at s = 1, a second uint8 block for p8) against its
+    # plain version on the host, whole outputs with their INT32_MIN fill; then
+    # the entry point, python -m tpucomp_torch.ops.cuda._probe, which must exit 0
+    pblocks = _probe.check_blocks()
+    for pname, xk, v in _probe.check_calls():
+        args = _probe.check_args(xk, v, pblocks)
+        compare(f"probe_{pname}", lambda *a, f=_probe.PROBES[pname]: (f(*a),),
+                lambda *a, f=_probe.PLAIN[pname]: (f(*a),), args,
+                f"{xk}, scalar {v}")
+    cli = subprocess.run([sys.executable, "-m", "tpucomp_torch.ops.cuda._probe"], cwd=HERE,
+                         capture_output=True, text=True, timeout=300)
+    for line in cli.stdout.splitlines():
+        print(f"[probe] {line}")
+    check(cli.returncode == 0, f"python -m tpucomp_torch.ops.cuda._probe exited "
+                               f"{cli.returncode}: {cli.stderr[-2000:]}")
+    lap("3 probes")
+
+    # the multi-block encoder (torch ops, behind batched.compress("zstd") above
+    # 64 KiB chunks) on the card against its run on the host, frame for frame:
+    # 4 rows at 128 KiB (the single-block branch at its widest; one cut short,
+    # one of 30 bytes) and each corpus's head 256 KiB as one row (two blocks)
+    zx_in = {"4 x 128 KiB": ChunkBatch.from_chunks(
+                 [corpora["mixed"][:1 << 17], corpora["mortgage"][:1 << 17],
+                  corpora["mixed"][1 << 20:(1 << 20) + 100_000], b"abc" * 10],
+                 1 << 17, device="cpu"),
+             "256 KiB heads": ChunkBatch.from_chunks(
+                 [raw[:1 << 18] for raw in corpora.values()], 1 << 18, device="cpu")}
+    for label, cb in zx_in.items():
+        got = fzstd.compress_batch(cb.data.to(dev), cb.sizes.to(dev))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        want = fzstd.compress_batch(cb.data, cb.sizes)
+        host_s = time.perf_counter() - t
+        same = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+        print(f"[encoder] zstd multi-block encoder {label}: card == host {same}, "
+              f"sizes {want[1].tolist()}, statuses {want[2].tolist()}, host run {host_s:.1f} s")
+        check(same, f"the zstd multi-block encoder on the card differs from the host ({label})")
+        check(bool((want[2] == Status.SUCCESS).all()) and all(
+            interop.zstd_decompress(f, len(r)) == r
+            for f, r in zip(ChunkBatch(*got[:2]).chunk_list(), cb.chunk_list())),
+            f"zstd multi-block encoder ({label}): libzstd does not read every frame back")
+    lap("3 zstd multi-block encoder")
+
     # ------------------------------------------------------------ 4 full width
     batches, staged = {}, {}
     for name, raw in corpora.items():
@@ -930,7 +1018,7 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated()
     print(f"[full] launches in the main-path run: {launches}; peak device memory "
           f"{peak / 2**30:.2f} GiB")
-    check(all(v > 0 for k, v in launches.items() if k not in VARIANTS),
+    check(all(v > 0 for k, v in launches.items() if k not in OFF_MAIN),
           f"a kernel was not launched: {launches}")
     check(gdeflate_encode.fixed_kernel.launches > 0 and gdeflate_encode.emit_kernel.launches > 0,
           "the GDeflate walk was not launched in both of its emitting modes")
@@ -1031,6 +1119,115 @@ def main() -> int:
         print(f"[variants] {json.dumps(row)}")
     del vresults
     lap("4 checks and timings, variants")
+
+    # the probes path: row 27 through its own entry points, _probe.main() and
+    # main2() on the reference's inputs, counted on its own; then each probe
+    # timed on those inputs (the first of each CHECK_CASES entry) beside the
+    # one PyTorch call that computes the same function there (library_ms)
+    reset_counts()
+    check(_probe.main() and _probe.main2(), "a probe of _probe.main() / main2() failed")
+    torch.cuda.synchronize()
+    plaunches = read_counts()
+    print(f"[probes] launches in the probes-path run: { {k: plaunches[k] for k in PROBES} }")
+    check(all(plaunches[k] > 0 for k in PROBES),
+          f"a kernel of the probes path was not launched: {plaunches}")
+    launches.update({k: plaunches[k] for k in PROBES})
+    lap("4 probes path")
+
+    library_ms = {}
+    for pname, (xk, scalars) in _probe.CHECK_CASES.items():
+        v = None if scalars is None else scalars[0]
+        args = _probe.check_args(xk, v, pblocks, dev)
+        x, sv = args[0], (None if v is None else int(v))
+        scratch = torch.full((16, 128), -2**31, dtype=torch.int32, device=dev)
+        lib = {"p1": lambda: x[0, args[1]], "p3": lambda: x[0, args[1]],
+               "p10": lambda: x[0, args[1]], "p11": lambda: x[0, args[1]],
+               "p2": lambda: torch.roll(x, sv, 1),
+               "p4": lambda: torch.add(x[sv:sv + 2], 1, out=scratch[sv:sv + 2]),
+               "p5": lambda: scratch[0, sv:].copy_(x[0, sv:]),
+               "p6": lambda: x[0, :sv].sum(),
+               "p7": lambda: scratch[sv:sv + 2].copy_(scratch[0:2]),
+               "p8": lambda: x.to(torch.int32) * 2,
+               "p9": lambda: torch.arange(128, device=dev) * 3}[pname]
+        kname = f"probe_{pname}"
+        kernel_ms[kname] = time_ms(torch, lambda: _probe.PROBES[pname](*args))
+        library_ms[kname] = time_ms(torch, lib)
+        card_plain = time_ms(torch, lambda: _probe.PLAIN[pname](*args))
+        in_bytes, out_bytes = probe_bytes(pname, x, sv)
+        bound[kname] = bytes_bound_ms(in_bytes, out_bytes)
+        print(f"[probes] {json.dumps({'probe': pname, 'input': xk, 'scalar': v, 'kernel_ms': kernel_ms[kname], 'library_ms': library_ms[kname], 'plain_on_card_ms': card_plain, 'read_bytes': in_bytes, 'written_bytes': out_bytes, 'bound_ms': bound[kname], 'bound': 'launch (under 64 KiB moved)'})}")
+    lap("4 timings, probes")
+
+    # Zstandard compress at nvCOMP's largest chunk: each corpus as 4 chunks of
+    # 16 MiB through batched.compress (the multi-block encoder, torch ops on
+    # the card, no kernel of its own) and back through batched.decompress
+    # (row 19), counted on its own
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    zbig = {}
+    for name, raw in corpora.items():
+        bcb = ChunkBatch.from_bytes(raw, BIG_CHUNK, device=dev)
+        bcomp, bcst = batched.compress("zstd", bcb)
+        zbig[name] = (bcb, bcomp, bcst) + batched.decompress("zstd", bcomp, BIG_CHUNK)
+    torch.cuda.synchronize()
+    zlaunches = read_counts()
+    print(f"[zstd16] launches in the 16 MiB compress path: "
+          f"{ {k: v for k, v in zlaunches.items() if v} }; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(zlaunches["zstd_decode_big"] > 0, "row 19 was not launched on the 16 MiB path")
+    lap("4 zstd 16 MiB compress path")
+
+    def stage_ms(cb) -> dict:
+        """The stages of one multi-block compress of ``cb``, each timed alone
+        (CUDA events) on the arguments it had in that call: the match finder
+        (per slice of blocks), the Huffman literal sections (per slice), the
+        repeat-offset scan and the three FSE state chains (one loop)."""
+        where = {"find_matches_ms": (flz4, "_find_matches"),
+                 "huf_literals_ms": (fzstd, "_huf_literals"),
+                 "rep_scan_ms": (fzstd, "_rep_codes"), "fse_chains_ms": (fzstd, "_fse_chains")}
+        orig = {k: getattr(mod, attr) for k, (mod, attr) in where.items()}
+        seen = {k: [] for k in where}
+
+        def recorder(k):
+            def rec(*a, **kw):
+                seen[k].append((a, kw))
+                return orig[k](*a, **kw)
+            return rec
+
+        for k, (mod, attr) in where.items():
+            setattr(mod, attr, recorder(k))
+        try:
+            batched.compress("zstd", cb)
+        finally:
+            for k, (mod, attr) in where.items():
+                setattr(mod, attr, orig[k])
+        return {k: sum(time_ms(torch, lambda a=a, kw=kw, f=orig[k]: f(*a, **kw), iters=1,
+                               warmup=0) for a, kw in seen[k]) for k in where}
+
+    for name, (bcb, bcomp, bcst, bdec, bdst) in zbig.items():
+        raw_bytes = len(corpora[name])
+        check(bool((bcst == Status.SUCCESS).all()),
+              f"{name} zstd compress at 16 MiB chunks: statuses {bcst.tolist()}")
+        check(all(pool.map(lambda f_r: interop.zstd_decompress(f_r[0], len(f_r[1])) == f_r[1],
+                           zip(bcomp.chunk_list(), bcb.chunk_list()))),
+              f"{name} zstd compress at 16 MiB chunks: libzstd does not read every frame back")
+        check(bool((bdst == Status.SUCCESS).all()) and torch.equal(bdec.sizes, bcb.sizes)
+              and torch.equal(bdec.data, bcb.data),
+              f"{name} zstd compress at 16 MiB chunks: row 19 does not read every frame back")
+        t_comp = time_ms(torch, lambda: batched.compress("zstd", bcb), iters=1, warmup=0)
+        st = stage_ms(bcb)
+        scans = st["rep_scan_ms"] + st["fse_chains_ms"]
+        row = {"corpus": name, "format": "zstd", "path": "multi-block encoder (torch ops)",
+               "chunk_bytes": BIG_CHUNK, "chunks": bcb.num_chunks,
+               "ratio": raw_bytes / int(bcomp.sizes.sum()),
+               "libzstd3_ratio": raw_bytes / int(staged[name, "zstd_big"].total_bytes),
+               "compress_ms": t_comp, "compress_GBps": raw_bytes / t_comp / 1e6, **st,
+               "scans_share_of_compress": scans / t_comp,
+               "read_by": "libzstd and row 19, bit-exact"}
+        print(f"[zstd16] {json.dumps(row)}")
+    del zbig
+    lap("4 checks and timings, zstd 16 MiB compress")
 
     readers = {"lz4": lambda f, r: interop.lz4_decompress(f, len(r)) == r,
                "snappy": lambda f, r: interop.snappy_decompress(f) == r}
@@ -1455,7 +1652,7 @@ def main() -> int:
     # ANS dispatches the wide wrappers (rows 23, 25)
     check(all(v > 0 for k, v in mgr_launches.items()
               if k not in ("deflate_encode_fixed", "zstd_decode_big", "ans_decode",
-                           "ans_encode", *VARIANTS)),
+                           "ans_encode", *OFF_MAIN)),
           f"a kernel was not launched on the Manager path: {mgr_launches}")
     for (name, fmt), (frame, mgr, cfg, out) in frames.items():
         buf = bufs[name]
@@ -1501,6 +1698,33 @@ def main() -> int:
         print(f"[manager] {json.dumps(row)}")
 
     lap("5 manager")
+
+    # Manager("zstd", 16 MiB chunks): each 64 MiB buffer as 4 chunks through
+    # the multi-block encoder, CRC32 computed and verified, counted on its own
+    reset_counts()
+    for name, buf in bufs.items():
+        m16 = Manager("zstd", BIG_CHUNK, checksum_policy=verify)
+        t = time.perf_counter()
+        frame = m16.compress(buf)
+        torch.cuda.synchronize()
+        t_comp = time.perf_counter() - t
+        mgr = create_manager(frame)
+        cfg = mgr.configure_decompression(frame)
+        t = time.perf_counter()
+        out = mgr.decompress(frame, cfg)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t
+        check(mgr.format == "zstd" and cfg.num_chunks == 4 and cfg.get_status() == Status.SUCCESS
+              and torch.equal(out, buf),
+              f"manager {name} zstd at 16 MiB chunks: round trip is not bit-exact or not SUCCESS")
+        row = {"corpus": name, "format": "zstd", "chunk_size": BIG_CHUNK,
+               "policy": verify.name, "chunks": cfg.num_chunks, "raw_bytes": buf.numel(),
+               "frame_ratio": buf.numel() / frame.numel(),
+               "compress_s_host_clock": t_comp, "decompress_s_host_clock": t_dec}
+        print(f"[manager16] {json.dumps(row)}")
+    m16_launches = read_counts()
+    check(m16_launches["zstd_decode_big"] > 0, "row 19 was not launched by the 16 MiB Manager")
+    lap("5 manager, zstd 16 MiB chunks")
     print(f"[time] wall seconds by phase: {json.dumps(phase_s)}; "
           f"{sum(phase_s.values()):.1f} s in all")
 
@@ -1512,7 +1736,7 @@ def main() -> int:
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": max_err[name], "ms": kernel_ms[name],
                         "plain_ms": plain_ms[name], "bound_ms": bound[name],
-                        "bound_by": "bytes", "library_ms": None})
+                        "bound_by": "bytes", "library_ms": library_ms.get(name)})
     print("[kernels] ms, bound_ms: the two full-width corpora summed (deflate_decode on "
           "the zlib-staged streams, deflate_encode_hist/emit in algo 1, zstd_decode on "
           "1024 x 64 KiB and zstd_decode_big on 4 x 16 MiB libzstd-staged frames, "
@@ -1532,7 +1756,12 @@ def main() -> int:
           "phase-3 inputs (host; each ANS plain version ran once for both of its kernels, "
           "and row 1's for rows 1, 3 and 4, its time stands beside each); no PyTorch "
           "call computes LZ4, Snappy, Deflate, "
-          "Zstandard, GDeflate, rANS or this two-pass RLE expansion")
+          "Zstandard, GDeflate, rANS or this two-pass RLE expansion; probe_p1-p11 (row 27): "
+          "launches from the probes path (_probe.main/main2), ms and library_ms on the "
+          "reference's inputs, library_ms the one PyTorch call of the same function "
+          "(x[0, idx], torch.roll, a slice add or copy_, x[0, :n].sum(), x.to(int32) * 2, "
+          "arange(128) * 3), bound_ms their bytes (under 64 KiB each) over the memory rate: "
+          "launch-bound")
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -187,6 +187,9 @@ def test_kernel_paths_refuse_cpu_tensors():
         batched.compress("cascaded", cb, backend="kernel")
     with pytest.raises(ValueError, match="CUDA"):
         batched.decompress("cascaded", cb, 16, backend="kernel")
+    big = chunk.ChunkBatch.from_bytes(b"abcdefgh" * 4, 65544, device="cpu")
+    with pytest.raises(ValueError, match="CUDA"):   # zstd above 64 KiB chunks too
+        batched.compress("zstd", big, backend="kernel")
     z = torch.zeros((cb.num_chunks, 16), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         cascaded_expand.expand_batch(z, z, z, z, torch.zeros((cb.num_chunks, 4),
@@ -203,9 +206,11 @@ def test_unported_paths_raise_not_implemented():
         batched.decompress("snappy", cb, 16, backend="xla")
     with pytest.raises(ValueError, match="unknown backend"):
         batched.decompress("lz4", cb, 16, backend="pallas")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):   # zstd above 64 KiB chunks
-        batched.compress("zstd", chunk.ChunkBatch.from_bytes(b"abcdefgh" * 4, 65544,
-                                                             device="cpu"))
+    with pytest.raises(NotImplementedError, match="formats/zstd.py"):   # the XLA decoder
+        batched.decompress("zstd", cb, 16, backend="xla")
+    big = chunk.ChunkBatch.from_bytes(b"abcdefgh" * 4, 65544, device="cpu")
+    comp, st = batched.compress("zstd", big)        # above 64 KiB chunks: ported
+    assert (st == 0).all() and interop.zstd_decompress(comp.chunk_list()[0], 32) == b"abcdefgh" * 4
     with pytest.raises(ValueError, match="unknown format"):
         batched.compress("brotli", cb)
 

@@ -30,7 +30,7 @@ from tpucomp_torch.formats import zstd as fzstd
 from tpucomp_torch.interop import cpu as interop
 from tpucomp_torch.manager import ChecksumPolicy, Manager, create_manager
 from tpucomp_torch.ops import cascaded_fast, match
-from tpucomp_torch.ops.cuda import (ans_decode, ans_encode, cascaded_expand, deflate_decode,
+from tpucomp_torch.ops.cuda import (_probe, ans_decode, ans_encode, cascaded_expand, deflate_decode,
                                     deflate_encode, gdeflate_decode,
                                     gdeflate_encode, gdeflate_vdecode, lz4_decode, lz4_decode2,
                                     lz4_decodek, lz4_encode, lz4_encode2,
@@ -399,7 +399,8 @@ def test_zstd_tables_on_card_equal_cpu(card):
 
 def test_zstd_compress_on_card_read_by_libzstd(card):
     """batched.compress("zstd") on the card: libzstd and the port's decoder
-    read every frame back bit-exact; a batch above 64 KiB raises (A.6)."""
+    read every frame back bit-exact, at 64 KiB chunks and above (the
+    multi-block encoder on the card, equal to its CPU run)."""
     if not interop.available()["zstd"]:
         pytest.skip("libzstd is not installed")
     buf = synth.mixed_corpus(4 << 20, seed=14).tobytes()
@@ -412,8 +413,14 @@ def test_zstd_compress_on_card_read_by_libzstd(card):
     assert all(interop.zstd_decompress(f, len(r)) == r for f, r in zip(comp.chunk_list(), raws))
     dec, dst = batched.decompress("zstd", comp, 65536)
     assert (dst == Status.SUCCESS).all() and dec.to_bytes() == buf
-    with pytest.raises(NotImplementedError, match="A.6"):
-        batched.compress("zstd", ChunkBatch.from_bytes(buf[:200000], 131072))
+    big = ChunkBatch.from_bytes(buf[:300000], 131072)
+    bcomp, bst = batched.compress("zstd", big)
+    assert (bst == Status.SUCCESS).all()
+    assert all(interop.zstd_decompress(f, len(r)) == r
+               for f, r in zip(bcomp.chunk_list(), big.chunk_list()))
+    cpu = fzstd.compress_batch(big.data.cpu(), big.sizes.cpu(), fzstd.DEFAULT_OPTS,
+                               bcomp.data.shape[1])
+    assert torch.equal(bcomp.data.cpu(), cpu[0]) and torch.equal(bcomp.sizes.cpu(), cpu[1])
 
 
 # ---------------------------------------------------------------- gdeflate ---
@@ -738,3 +745,22 @@ def test_gdeflate_serial_decode_kernel_equals_plain(card):
         assert _equal(got, want)
         if out_cap == 65536:
             assert (want[2][:24] == Status.SUCCESS).all()
+
+
+# ------------------------------------------------------------------ probes ---
+
+@pytest.mark.parametrize("name", list(_probe.PROBES))
+def test_probe_kernel_equals_plain(card, name):
+    """Row 27: each probe's kernel on ``_probe.CHECK_CASES`` (the reference's
+    inputs, out-of-range, negative and overlapping scalars) equals its plain
+    version, whole outputs with their INT32_MIN fill."""
+    blocks = _probe.check_blocks()
+    for n, xk, v in _probe.check_calls():
+        if n != name:
+            continue
+        args = _probe.check_args(xk, v, blocks)
+        before = _probe.PROBES[name].launches
+        got = _probe.PROBES[name](*(a.to(card) for a in args))
+        torch.cuda.synchronize()
+        assert _probe.PROBES[name].launches == before + 1
+        assert torch.equal(got.cpu(), _probe.PLAIN[name](*args)), (name, xk, v)

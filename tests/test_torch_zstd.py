@@ -250,8 +250,9 @@ def test_batched_api_and_bounds():
     dec, st = batched.decompress("zstd", cb, 8192)
     assert st.tolist() == [0, 0]
     assert dec.chunk_list() == [RAWS["mixed"], RAWS["text"]]
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):   # above 64 KiB chunks
-        batched.compress("zstd", ChunkBatch.from_bytes(b"abcdefgh" * 4, 65544, device="cpu"))
+    comp, cst = batched.compress("zstd", ChunkBatch.from_bytes(b"abcdefgh" * 4, 65544,
+                                                               device="cpu"))   # above 64 KiB
+    assert cst.tolist() == [0] and interop.zstd_decompress(comp.chunk_list()[0]) == b"abcdefgh" * 4
     with pytest.raises(NotImplementedError, match="formats/zstd.py"):
         batched.decompress("zstd", cb, 8192, backend="xla")
     with pytest.raises(ValueError, match="CUDA"):

@@ -375,20 +375,28 @@ def test_batched_api_round_trip():
 
 
 def test_chunks_above_64k_raise_a6():
-    """The reference sends chunks above 64 KiB to its XLA multi-block
-    encoder (``ops/pallas/__init__.py:253-267``), not ported yet: both the
-    batched call and a Manager's compress raise, naming ROADMAP A.6; such a
-    Manager still reads frames."""
-    big = ChunkBatch.from_bytes(_MIX[:70_000].tobytes(), 65544, device="cpu")
-    for backend in ("auto", "plain", "kernel"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-            batched.compress("zstd", big, backend=backend)
+    """Chunks above 64 KiB take the multi-block encoder, as the reference's
+    dispatch (``ops/pallas/__init__.py:253-267``), for every backend that
+    runs here: the batched call and a Manager's compress give frames that
+    zstd reads (ROADMAP A.6's first item, done); the kernel backend refuses
+    CPU tensors at this width too, and the kernel encoder itself refuses
+    the width."""
+    big = ChunkBatch.from_bytes(_MIX[:20_000].tobytes(), 65544, device="cpu")
+    want = fzstd.compress_batch(big.data, big.sizes, fzstd.DEFAULT_OPTS,
+                                fzstd.max_compressed_chunk_size(65544))
+    for backend in ("auto", "plain"):
+        comp, st = batched.compress("zstd", big, backend=backend)
+        assert torch.equal(comp.data, want[0]) and (st == Status.SUCCESS).all()
+    with pytest.raises(ValueError, match="CUDA"):
+        batched.compress("zstd", big, backend="kernel")
+    assert b"".join(zstandard.ZstdDecompressor().decompress(f)
+                    for f in comp.chunk_list()) == _MIX[:20_000].tobytes()
     with pytest.raises(ValueError, match="cap <= 65536"):
         zstd_encode.compress_batch_plain(big.data, big.sizes, 70000)
-    data = _MIX[:100_000].tobytes()
+    data = _MIX[:30_000].tobytes()
     mgr = Manager("zstd", 131072, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        mgr.compress(data)
+    frame = mgr.compress(data)
+    assert bytes(mgr.decompress(frame).numpy()) == data
     frame = Manager("zstd", 65536, device="cpu").compress(data)
     assert mgr.decompress(frame).numpy().tobytes() == data
 

@@ -21,8 +21,9 @@ C function families (``doc/lowlevel_c_quickstart.md:32-137``).
   CPU tensors;
 * ``"plain"`` — the plain version, on any device (for tests and checks);
 * ``"xla"`` — the reference's log-depth program: for ``cascaded`` the
-  registered general program (as the reference's ``xla``); for the other
-  formats not ported yet, ``NotImplementedError``.
+  registered general program (as the reference's ``xla``), for ``zstd``
+  compress the multi-block encoder at every chunk size; for the other
+  formats and directions, not ported yet, ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ import torch
 from tpucomp_torch import logging as tlog
 from tpucomp_torch.chunk import ChunkBatch
 from tpucomp_torch.constants import MAX_ALLOWED_CHUNK_SIZE, REQUIRED_ALIGNMENT, Status
+from tpucomp_torch.formats import zstd as fzstd
 
 _LOG_DEPTH_TODO = ("the log-depth program of tpucomp/formats/{fmt}.py + "
                    "ops/parallel_lz.py is not ported yet (ROADMAP.md, queue A)")
@@ -152,7 +154,10 @@ def _input_violations(fmt: str, spec: CodecSpec, sizes: torch.Tensor,
 
 
 _ENV_BACKEND = {"encoder": "TPUCOMP_ENCODE_BACKEND", "decoder": "TPUCOMP_DECODE_BACKEND"}
-_XLA_PORTED = ("cascaded",)   # formats whose registered entries are the reference's xla
+# the reference's xla entries the port has, by (format, kind); None: the
+# registered plain entry is the reference's xla program
+_XLA_ENTRIES = {("cascaded", "encoder"): None, ("cascaded", "decoder"): None,
+                ("zstd", "encoder"): fzstd.compress_batch}
 
 
 def _impl(fmt: str, backend: str, on_cuda: bool, kernels: dict, plain: Callable,
@@ -172,8 +177,8 @@ def _impl(fmt: str, backend: str, on_cuda: bool, kernels: dict, plain: Callable,
     if backend == "plain":
         return plain
     if backend == "xla":
-        if fmt in _XLA_PORTED:
-            return plain
+        if (fmt, kind) in _XLA_ENTRIES:
+            return _XLA_ENTRIES[fmt, kind] or plain
         raise NotImplementedError(f"backend 'xla': {_LOG_DEPTH_TODO.format(fmt=fmt)}")
     raise ValueError(f"unknown backend {backend!r} (auto/kernel/plain/xla)")
 

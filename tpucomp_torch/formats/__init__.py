@@ -1,7 +1,7 @@
 """Format codecs registered with :mod:`tpucomp_torch.batched`.
 
 Port of :mod:`tpucomp.formats`.  LZ4, Snappy, Deflate, gzip (decompression
-only), Zstandard (compression of chunks up to 64 KiB), GDeflate, ANS and
+only), Zstandard, GDeflate, ANS and
 Cascaded are ported so far
 (and the CRC32 of :mod:`.crc32`, which registers no codec); the other
 formats follow in the order of ``ROADMAP.md``.
@@ -69,8 +69,8 @@ def register_all() -> None:
     batched.register(CodecSpec(
         name="zstd",
         # the portable entry is the kernel pipeline's plain version up to
-        # 64 KiB chunks; above, the reference's XLA multi-block encoder is not
-        # ported yet (NotImplementedError, ROADMAP A.6)
+        # 64 KiB chunks; above, the reference's multi-block encoder
+        # (formats/zstd.py::compress_batch), as the reference's dispatch
         compress_batch=lambda d, s, o, c: zstd_encode.dispatch(d, s, c, plain=True),
         decompress_batch=lambda c, s, oc: zstd_decode.dispatch(c, s, oc, plain=True),
         max_compressed_chunk_size=zstd.max_compressed_chunk_size,

@@ -32,9 +32,8 @@ without one); pass ``device="cpu"`` for the plain versions on the host.
 PyTorch runs eagerly, so there is no compiled-program cache.  Host syncs are
 the reference's two: reading the 56-byte header, and reading the frame's
 total size to trim it.  Formats not ported yet raise ``ValueError`` from the
-format registry; a zstd manager whose chunks exceed 64 KiB raises
-``NotImplementedError`` at ``compress`` (the reference's XLA multi-block
-encoder is not ported yet, ROADMAP A.6) and still reads frames.
+format registry.  A zstd manager whose chunks exceed 64 KiB compresses
+through the multi-block encoder, as the reference's.
 """
 from __future__ import annotations
 

@@ -22,7 +22,8 @@ sits its plain version with the same signature.
   one kernel behind the reference's two wrappers, chosen by its dispatch gate.
 - :mod:`.zstd_encode` — the Zstandard walk over :func:`tpucomp_torch.ops
   .match.candidates2` in modes hist and full (``csrc/zstd_encode.cu``), with
-  the FSE and Huffman tables in torch ops; chunks up to 64 KiB.
+  the FSE and Huffman tables in torch ops; chunks up to 64 KiB (wider ones
+  take the multi-block encoder of :mod:`tpucomp_torch.formats.zstd`).
 - :mod:`.gdeflate_vdecode` — the GDeflate 32-lane tile parse and the token
   replay (``csrc/gdeflate_vdecode.cu``).
 - :mod:`.gdeflate_encode` — the GDeflate walk over :func:`tpucomp_torch.ops
@@ -101,7 +102,7 @@ def _zstd_decompress_batch(comp, comp_sizes, out_cap):
 
 def _zstd_compress_batch(data, sizes, opts, out_cap):
     """The exact-entropy kernel pipeline up to 64 KiB chunks; above, the
-    reference's XLA multi-block encoder, not ported yet: NotImplementedError
+    reference's multi-block encoder in torch ops on the card
     (``ops/pallas/__init__.py:253-267``).  ZstdOpts is empty."""
     from tpucomp_torch.ops.cuda import zstd_encode
     return zstd_encode.dispatch(data, sizes, out_cap)

@@ -44,10 +44,7 @@ from tpucomp_torch.ops.cuda.deflate_encode import _frames, _int32, _rows
 from tpucomp_torch.ops.cuda.lz4_encode2 import _clamped_sizes, _match_len
 
 MIN_MATCH = 4
-MAX_CAP = 65536   # 16-bit (ll, ml - 3) packing; the dispatch raises above it
-GATE_TODO = ("chunks above 65536 bytes take the reference's XLA multi-block encoder "
-             "(tpucomp/formats/zstd.py::compress_batch), which is not ported yet "
-             "(ROADMAP A.6)")
+MAX_CAP = 65536   # 16-bit (ll, ml - 3) packing; wider chunks take the multi-block encoder
 
 # ---- the constant table: code lookups and the packed predefined encoders ----------
 # zstd's own LL_Code[64] / ML_Code[128] (beyond them: the high bit plus a delta)
@@ -116,11 +113,6 @@ PREDEF_FSE_TAB = _predef_fse_tab()
 
 # --- the table layer (torch ops over B) ---------------------------------------------
 
-def _flog2(x: torch.Tensor) -> torch.Tensor:
-    """floor(log2 x) for x >= 1, at most 9 (the reference's unrolled count)."""
-    return sum((x >= (1 << k)).to(torch.int64) for k in range(1, 10))
-
-
 def _pack_fields(vals: torch.Tensor, bits: torch.Tensor):
     """Fields ``[B, n]`` of ``bits`` bits each, LSB first from bit 0 ->
     ``(bytes int64[B, NC_CAP], byte count int64[B])``; the words are sums
@@ -142,31 +134,12 @@ def _pack_fields(vals: torch.Tensor, bits: torch.Tensor):
 
 
 def _one_table(freq, nseq, acc, def_norm, def_acc, def_enc, size_c):
-    """One sequence code's table (``_seq_tables.one``, ``zstd_encode.py:155-180``):
-    custom FSE where it is valid and cheaper, else the predefined one."""
-    B, max_sym = freq.shape
-    dev = freq.device
-    freq = freq.to(torch.int64)
-    norm, nsym, nok = fzstd.normalize_counts(freq, 1 << acc)
-    stc, nbc, bsc, firstc, tok = fzstd.fse_enc(norm, nsym, acc)
-    dvals, dbits, dlen = fzstd.serialize_ncount(norm, nsym, acc)
-    cost_c = (freq * (acc - _flog2(norm.clamp(min=1)))).sum(dim=1) + dlen + 7 + acc
-    dn = torch.from_numpy(np.abs(def_norm).astype(np.int64)[:max_sym]).to(dev)
-    cost_p = (freq * (def_acc - _flog2(dn.clamp(min=1)))).sum(dim=1) + def_acc
-    use = nok & tok & (cost_c < cost_p) & (nseq >= 16)
-
-    std, nbd, bsd = (torch.from_numpy(np.pad(a.astype(np.int64),
-                                             ((0, 0), (0, size_c - a.shape[1])))).to(dev)
-                     for a in def_enc[:3])
-    firstd = torch.from_numpy(def_enc[3].astype(np.int64)).to(dev)
-    u = use[:, None, None]
-    st = torch.where(u, stc, std)
-    nb = torch.where(u, nbc, nbd)
-    bs = torch.where(u, bsc, bsd)
-    first = torch.where(use[:, None], firstc, firstd)
-    packed = (st | (nb << 10) | (bs << 14)).reshape(B, -1)
-    acc_used = torch.where(use, acc, def_acc)
-    return use, packed, first, acc_used, dvals, torch.where(use[:, None], dbits, 0)
+    """One sequence code's table (``_seq_tables.one``, ``zstd_encode.py:155-180``),
+    :func:`tpucomp_torch.formats.zstd.seq_table` packed into this layout."""
+    use, st, nb, bs, first, acc_used, dvals, dbits = fzstd.seq_table(
+        freq, nseq, acc, def_norm, def_acc, def_enc, size_c)
+    packed = (st | (nb << 10) | (bs << 14)).reshape(freq.shape[0], -1)
+    return use, packed, first, acc_used, dvals, dbits
 
 
 def seq_tables(sch: torch.Tensor):
@@ -582,9 +555,12 @@ def compress_batch_plain(data: torch.Tensor, sizes: torch.Tensor, out_cap: int,
 
 def dispatch(data: torch.Tensor, sizes: torch.Tensor, out_cap: int, plain: bool = False):
     """The registry's zstd encoder (``tpucomp/ops/pallas/__init__.py:253-267``):
-    the kernel pipeline for chunks up to 64 KiB; above that the reference
-    runs its XLA multi-block encoder, not ported yet, so this raises
-    ``NotImplementedError``."""
+    the kernel pipeline (or its plain version) for chunks up to 64 KiB; above
+    that, as the reference, the multi-block encoder of
+    :func:`tpucomp_torch.formats.zstd.compress_batch` (torch ops on
+    ``data``'s device), up to 16 MiB chunks."""
     if data.shape[1] > MAX_CAP:
-        raise NotImplementedError(f"zstd compress: {GATE_TODO}")
+        if not plain and data.device.type != "cuda":
+            raise ValueError(f"the Zstandard kernel path needs CUDA tensors, got {data.device}")
+        return fzstd.compress_batch(data, sizes, fzstd.DEFAULT_OPTS, out_cap)
     return (compress_batch_plain if plain else compress_batch)(data, sizes, out_cap)
