@@ -13,10 +13,10 @@ Phases, each printing its own lines; any failure ends the run with a non-zero
 exit code and no result line:
 
 1. device: name, count, and ``nvidia-smi``'s name and power limit;
-2. build: the sixteen CUDA libraries from ``tpucomp_torch/ops/cuda/csrc`` (one
+2. build: the seventeen CUDA libraries from ``tpucomp_torch/ops/cuda/csrc`` (one
    ``nvcc`` each, in parallel), with their ``-Xptxas -v`` register/shared-memory
    lines;
-3. kernel vs plain: each of the thirty-seven kernels on the card against its plain
+3. kernel vs plain: each of the forty-four kernels on the card against its plain
    version on a host copy of the same inputs (<= 8 chunks per corpus at the
    main path's 64 KiB shape, edge and hand-made streams, truncated and
    bit-flipped streams, an out_cap that is too small; rows 3 and 4 (k 1, 3,
@@ -27,10 +27,16 @@ exit code and no result line:
    tests/test_torch_variants.py at out_cap 64 KiB and 256; for Deflate, zlib
    levels 0/1/6/9, libdeflate, a multi-block stream, gzip members through
    the decoder's ``starts``, and the encoder's three modes, with
-   ``dyn_tables`` on the card against the CPU; for Zstandard, both wrappers
-   (the two literal capacities) on libzstd frames at levels 1/3/19, edge,
-   hand-made and corrupt frames, and the 16 MiB wrapper on one 16 MiB chunk
-   of each corpus at the main path's shape; the encoder's hist and full walks
+   ``dyn_tables`` on the card against the CPU; for Zstandard decode, both
+   wrappers (the two literal capacities) against the frame walk on libzstd
+   frames at levels 1/3/19, edge, hand-made and corrupt frames, and the
+   16 MiB wrapper on the first 16 MiB of each corpus at libzstd level 3,
+   each pass kernel (chain, entropy, scan, resolve, the walk that settles
+   frames too big for out_cap, zero, execute in its wide shape and, where
+   every frame is one block, its narrow one) against its plain pass on the
+   plain passes' own intermediates (one plain run an input), and the 16 MiB
+   wrapper also on each corpus's first 16 MiB at levels 1 and 19 and on the
+   port's own 16 MiB frame; the encoder's hist and full walks
    on the head chunks, the edge inputs of tests/test_pallas_zstd.py and its
    64 KiB sequence-heavy chunk, in exact entropy at two out_caps and in the
    speed rung, with its tables on the card against the CPU; for GDeflate,
@@ -62,7 +68,8 @@ exit code and no result line:
    ``batched.compress`` / ``batched.decompress`` (backend "auto") for LZ4,
    Snappy and Deflate algos 0, 1, 2, and ``batched.decompress("gzip")``,
    ``batched.decompress("zstd")`` on the same chunks staged by libzstd level
-   3 (row 18) and on each corpus as 4 chunks of 16 MiB (row 19), and
+   3 (row 18, also on 1 and 8 of them) and on
+   each corpus as 4 chunks of 16 MiB (row 19, each pass timed alone), and
    ``batched.compress("zstd")`` (rows 20-21, exact entropy) with its speed
    rung (``exact_entropy=False``), ``batched.compress`` /
    ``batched.decompress("gdeflate")`` in algos 0, 1, 2 (rows 13-14, 16-17;
@@ -82,6 +89,9 @@ exit code and no result line:
    corpora (liblz4 and libsnappy, where they load, and rows 1 and 6 read
    every frame; ratios beside the v2 encoders'), row 15 on the port's
    GDeflate tiles of algos 0-2 (equal to rows 13-14's output), with timings;
+   the Zstandard settle path, counted on its own: the libzstd-staged 64 KiB
+   frames into 64-byte rows through row 19's wrapper, where the frame walk
+   gives every frame ``ERROR_OUTPUT_BUFFER_TOO_SMALL``;
    the probes path, counted on its own: ``_probe.main()`` and ``main2()``,
    then each probe timed beside the one PyTorch call of the same function;
    the Zstandard 16 MiB compress path, counted on its own: each corpus as 4
@@ -123,6 +133,7 @@ SEED = 42
 PHASE3_CHUNKS = 8
 BIG_CHUNK = 1 << 24       # the reference's largest zstd chunk (16 MiB)
 BIG_ITERS = 3             # timing iterations in the 16 MiB regime
+ZSTD_TIGHT = 64           # an out_cap no 64 KiB frame fits: the settle path's walk
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 WARMUP, ITERS = 2, 10
 GD_ITERS = 3              # timing iterations of the GDeflate encode stages
@@ -135,8 +146,15 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "deflate_encode_fixed": ("deflate_encode.cu", "tpucomp/ops/pallas/deflate_encode.py:47"),
     "deflate_encode_hist": ("deflate_encode.cu", "tpucomp/ops/pallas/deflate_encode.py:47"),
     "deflate_encode_emit": ("deflate_encode.cu", "tpucomp/ops/pallas/deflate_encode.py:47"),
-    "zstd_decode": ("zstd_decode.cu", "tpucomp/ops/pallas/zstd_decode.py:109"),
-    "zstd_decode_big": ("zstd_decode.cu", "tpucomp/ops/pallas/zstd_decode.py:109"),
+    # rows 18 and 19: the block-parallel passes as a whole, then each pass,
+    # and the frame walk that settles frames too big for their out_cap (the
+    # settle path)
+    "zstd_decode": ("zstd_passes.cu", "tpucomp/ops/pallas/zstd_decode.py:109"),
+    "zstd_decode_big": ("zstd_passes.cu", "tpucomp/ops/pallas/zstd_decode.py:109"),
+    **{name: ("zstd_passes.cu", "tpucomp/ops/pallas/zstd_decode.py:109")
+       for name in ("zstd_chain", "zstd_entropy", "zstd_scan", "zstd_resolve", "zstd_zero",
+                    "zstd_execute")},
+    "zstd_walk": ("zstd_decode.cu", "tpucomp/ops/pallas/zstd_decode.py:109"),
     "zstd_encode_hist": ("zstd_encode.cu", "tpucomp/ops/pallas/zstd_encode.py:237"),
     "zstd_encode": ("zstd_encode.cu", "tpucomp/ops/pallas/zstd_encode.py:237"),
     "gdeflate_parse": ("gdeflate_vdecode.cu", "tpucomp/ops/pallas/gdeflate_vdecode.py:67"),
@@ -160,10 +178,12 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                        ("p6", 112), ("p7", 143), ("p8", 163), ("p9", 176), ("p10", 219),
                        ("p11", 239))},
 }
+ZSTD_PASSES = ("zstd_chain", "zstd_entropy", "zstd_scan", "zstd_resolve", "zstd_zero",
+               "zstd_execute")
 VARIANTS = ("lz4_decode_single", "lz4_decode_k", "lz4_encode_hash", "snappy_encode_hash",
             "gdeflate_decode")
 PROBES = tuple(k for k in KERNELS if k.startswith("probe_"))
-OFF_MAIN = VARIANTS + PROBES   # kernels of their own paths, counted on their own
+OFF_MAIN = VARIANTS + PROBES + ("zstd_walk",)   # kernels of their own paths, counted there
 ALGOS = (0, 1, 2)
 CAS_ITERS = 3             # timing iterations of the Cascaded stages
 # Cascaded configurations: nvCOMP's num_RLEs=2, num_deltas=1, use_bp=1
@@ -285,6 +305,7 @@ def main() -> int:
                                         gdeflate_vdecode, lz4_decode, lz4_decode2, lz4_decodek,
                                         lz4_encode, lz4_encode2, snappy_decode, snappy_encode,
                                         snappy_encode2, zstd_decode, zstd_encode)
+    from tpucomp_torch.ops.cuda import zstd_passes as zp
     from tpucomp_torch.utils import synth
     sys.path.insert(0, str(HERE / "tests"))
     import gdeflate_pyref as pyref    # the format's serial Python codec (no JAX)
@@ -299,6 +320,10 @@ def main() -> int:
                 "deflate_encode_emit": (deflate_encode.emit_kernel,),
                 "zstd_decode": (zstd_decode.decompress_batch,),
                 "zstd_decode_big": (zstd_decode.decompress_batch_big,),
+                "zstd_chain": (zp.chain_kernel,), "zstd_entropy": (zp.entropy_kernel,),
+                "zstd_scan": (zp.scan_kernel,), "zstd_resolve": (zp.resolve_kernel,),
+                "zstd_zero": (zp.zero_kernel,), "zstd_execute": (zp.execute_kernel,),
+                "zstd_walk": (zp.settle_kernel,),
                 "zstd_encode_hist": (zstd_encode.hist_kernel,),
                 "zstd_encode": (zstd_encode.full_kernel,),
                 "gdeflate_parse": (gdeflate_vdecode.parse_kernel,),
@@ -556,19 +581,105 @@ def main() -> int:
         zgood[:4] + bytes([zgood[4] | 0x01, 7]) + zgood[5:],
         bytes(np.random.default_rng(9).integers(0, 256, 96, dtype=np.uint8)), b""]
     z_in = ChunkBatch.from_chunks(zstreams, fzstd.max_compressed_chunk_size(CHUNK), device="cpu")
-    for name, kernel_fn, plain_fn in (
-            ("zstd_decode", zstd_decode.decompress_batch, zstd_decode.decompress_batch_plain),
-            ("zstd_decode_big", zstd_decode.decompress_batch_big,
-             zstd_decode.decompress_batch_big_plain)):
-        for cap, label in ((CHUNK, "64 KiB out_cap"), (1000, "out_cap too small")):
-            compare(name, kernel_fn, plain_fn, (z_in.data, z_in.sizes, cap),
-                    f"{len(zstreams)} frames, {label}")
-    z_big = ChunkBatch.from_chunks([interop.zstd_compress(v[:BIG_CHUNK], 3)
-                                    for v in corpora.values()],
-                                   fzstd.max_compressed_chunk_size(BIG_CHUNK), device="cpu")
-    compare("zstd_decode_big", zstd_decode.decompress_batch_big,
-            zstd_decode.decompress_batch_big_plain, (z_big.data, z_big.sizes, BIG_CHUNK),
-            "the first 16 MiB chunk of each corpus (libzstd level 3), 16 MiB out_cap")
+
+    def zstd_passes_against_plain(cb, out_cap, label, big=True):
+        """Each pass on the card against its plain pass, on the plain
+        passes' own inputs (one plain run, every intermediate kept), with
+        row 19's lit_cap or with ``big=False`` row 18's; returns the plain
+        passes' result."""
+        lit_cap = zstd_decode.lit_cap_of(out_cap, big)
+        label += "" if big else " (row 18's lit_cap)"
+        d, sz = cb.data, cb.sizes
+        fcount, bases, totals = plain_once(("zstd_chain",), zp.chain_plain, d, sz, out_cap,
+                                           lit_cap)
+        fk, bk, tk = zp.chain_kernel(d.to(dev), sz.to(dev), out_cap, lit_cap)
+        against("zstd_chain", (fk, torch.cat([bk.reshape(-1).cpu(), torch.tensor(tk)])),
+                (fcount, torch.cat([bases.reshape(-1), torch.tensor(totals)])),
+                f"counts, bases and totals, {label}")
+        nblk, nseq, nlit, nover, most = totals
+        blk = plain_once(("zstd_chain",), zp.fill_plain, d, sz, out_cap, lit_cap, fcount, bases,
+                         nblk)
+        against("zstd_chain", (zp.fill_kernel(d.to(dev), sz.to(dev), out_cap, lit_cap,
+                                              fcount.to(dev), bases.to(dev), nblk),),
+                (blk,), f"{nblk} block records, {label}")
+        ent = plain_once(("zstd_entropy",), zp.entropy_plain, d, blk, nlit, nseq)
+        against("zstd_entropy", zp.entropy_kernel(d.to(dev), blk.to(dev), nlit, nseq), ent,
+                f"{nlit} literals, {nseq} sequences, {label}")
+        lits, seqs, bout, bsym, berr = ent
+        scan = plain_once(("zstd_scan",), zp.scan_plain, fcount, bases, bout, bsym, berr, out_cap)
+        against("zstd_scan", zp.scan_kernel(*[x.to(dev) for x in (fcount, bases, bout, bsym, berr)],
+                                            out_cap), scan, label)
+        bstart, bin_, fsize, fstat0 = scan
+        res = plain_once(("zstd_resolve",), zp.resolve_plain, blk, seqs, bstart, bin_, fstat0)
+        against("zstd_resolve", zp.resolve_kernel(*[x.to(dev) for x in (blk, seqs, bstart, bin_,
+                                                                          fstat0)]), res, label)
+        offs, fstat = res
+        if nover:     # frames whose smallest output passes out_cap: the walk
+            want = plain_once(("zstd_walk",), zp.settle_plain, d, sz, out_cap, lit_cap, fstat)
+            against("zstd_walk", (zp.settle_kernel(d.to(dev), sz.to(dev), out_cap, lit_cap,
+                                                     fstat.to(dev)),), (want,),
+                    f"{nover} frames settled by the walk, {label}")
+            fstat = want
+        zero = plain_once(("zstd_zero",), zp.zero_plain, fstat, fsize, out_cap)
+        got = zp.zero_kernel(fstat.to(dev), fsize.to(dev), out_cap)
+        col = torch.arange(out_cap, device=dev)[None, :]   # the rows past each size
+        against("zstd_zero", (torch.where(col >= got[1][:, None], got[0], 0),) + got[1:], zero,
+                label)
+        out = plain_once(("zstd_execute",), zp.execute_plain, d, blk, lits, seqs, offs, bstart,
+                         bout, fstat, zero[0])
+        for multi in sorted({most > 1, True}):   # the narrow shape where it applies, the wide
+            against("zstd_execute", (zp.execute_kernel(*[x.to(dev) for x in (
+                d, blk, lits, seqs, offs, bstart, bout, fstat, zero[0])], multi),), (out,),
+                f"{label}, {'tickets, wide' if multi else 'narrow'} shape")
+        return out, zero[1], zero[2]
+
+    # Zstandard decode, both wrappers: libzstd levels 1/3/19 on every head
+    # chunk, edge inputs, many literals (the two lit_caps part at out_cap
+    # 1000), the corrupt frames of tests/test_pallas_zstd.py:94-105 and fuzz;
+    # each pass against its plain pass, the whole (both wrappers) against the walk
+    for cap, label in ((CHUNK, "64 KiB out_cap"), (1000, "out_cap too small")):
+        for name, kernel_fn, plain_fn, big in (
+                ("zstd_decode", zstd_decode.decompress_batch, zstd_decode.decompress_batch_plain,
+                 False),
+                ("zstd_decode_big", zstd_decode.decompress_batch_big,
+                 zstd_decode.decompress_batch_big_plain, True)):
+            walk = compare(name, kernel_fn, plain_fn, (z_in.data, z_in.sizes, cap),
+                           f"{len(zstreams)} frames, {label}, against the walk")
+            check(all(torch.equal(a, b) for a, b in zip(zstd_passes_against_plain(
+                z_in, cap, f"{len(zstreams)} frames, {label}", big), walk)),
+                  f"the plain passes differ from the walk ({label})")
+    # then the 16 MiB wrapper at the main path's shape: each corpus's first
+    # 16 MiB at libzstd levels 3 (against the walk), 1 and 19, and the port's
+    # own frame (the multi-block encoder on the card)
+    big_cap = fzstd.max_compressed_chunk_size(BIG_CHUNK)
+    heads16 = [v[:BIG_CHUNK] for v in corpora.values()]
+    z_big = ChunkBatch.from_chunks(list(pool.map(interop.zstd_compress, heads16)), big_cap,
+                                   device="cpu")
+    walk = compare("zstd_decode_big", zstd_decode.decompress_batch_big,
+                   zstd_decode.decompress_batch_big_plain, (z_big.data, z_big.sizes, BIG_CHUNK),
+                   "the first 16 MiB chunk of each corpus (libzstd level 3), 16 MiB out_cap, "
+                   "against the walk")
+    check(all(torch.equal(a, b) for a, b in zip(zstd_passes_against_plain(
+        z_big, BIG_CHUNK, "each corpus's first 16 MiB, libzstd level 3"), walk)),
+          "row 19's plain passes differ from the walk on the 16 MiB chunks")
+    own16 = []
+    for h in heads16:
+        hcb = ChunkBatch.from_bytes(h, BIG_CHUNK, device=dev)
+        own16 += fzstd.compress_batch(hcb.data, hcb.sizes)[:2]
+    z_more = ChunkBatch.from_chunks(
+        list(pool.map(lambda a: interop.zstd_compress(*a),
+                      [(h, lv) for h in heads16 for lv in (1, 19)]))
+        + [bytes(own16[k][0, :own16[k + 1][0]].cpu().numpy()) for k in (0, 2)], big_cap,
+        device="cpu")
+    want = zstd_passes_against_plain(z_more, BIG_CHUNK, "each corpus's first 16 MiB, libzstd "
+                                     "levels 1 and 19 and the port's own frame")
+    against("zstd_decode_big", zstd_decode.decompress_batch_big(
+        z_more.data.to(dev), z_more.sizes.to(dev), BIG_CHUNK), want,
+        "each corpus's first 16 MiB, libzstd levels 1 and 19 and the port's own frame, "
+        "against the plain passes")
+    check(bool((want[2] == 0).all()) and all(
+        bytes(want[0][i, :want[1][i]].numpy()) == heads16[i // 2 if i < 4 else i - 4]
+        for i in range(6)), "row 19 does not read the 16 MiB frames back to the corpora")
 
     # Deflate encode: the three modes at out_cap = bound and 1024, with and
     # without matches, and dyn_tables on the card against the CPU
@@ -1051,6 +1162,33 @@ def main() -> int:
     launches.update({k: vlaunches[k] for k in VARIANTS})
     lap("4 variants path")
 
+    # the settle path, counted on its own: a caller whose rows are too small
+    # for every frame, through row 19's wrapper (whose lit_cap passes every
+    # block), so the chain marks every frame and the walk settles it
+    reset_counts()
+    ztight = {name: zstd_decode.decompress_batch_big(staged[name, "zstd"].data,
+                                                     staged[name, "zstd"].sizes, ZSTD_TIGHT)
+              for name in batches}
+    torch.cuda.synchronize()
+    slaunches = read_counts()
+    print(f"[settle] launches in the settle-path run: {slaunches}")
+    check(slaunches["zstd_walk"] > 0 and slaunches["zstd_execute"] == 0,
+          f"the settle path did not go through the walk alone: {slaunches}")
+    launches["zstd_walk"] = slaunches["zstd_walk"]
+    lc_tight = zstd_decode.lit_cap_of(ZSTD_TIGHT, big=True)
+    for name, (tout, tsz, tst) in ztight.items():
+        zs = staged[name, "zstd"]
+        check(bool((tst == Status.ERROR_OUTPUT_BUFFER_TOO_SMALL).all()) and not tsz.any()
+              and not tout.any(),
+              f"{name} zstd into {ZSTD_TIGHT}-byte rows: not every frame too big, size 0")
+        marks = zp.chain_kernel(zs.data, zs.sizes, ZSTD_TIGHT, lc_tight)[0][:, 3].to(torch.int32)
+        check(bool((marks == zp.OVERFLOW).all()), f"{name}: the chain did not mark every frame")
+        kernel_ms["zstd_walk"] += time_ms(torch, lambda: zp.settle_kernel(
+            zs.data, zs.sizes, ZSTD_TIGHT, lc_tight, marks))
+        bound["zstd_walk"] += bytes_bound_ms(int(zs.total_bytes) + 8 * zs.num_chunks,
+                                             4 * zs.num_chunks)
+    lap("4 settle path")
+
     # rows 3 and 4 give row 1's bytes, sizes and statuses; the C libraries
     # (where they load) and rows 1 and 6 read every frame of rows 5 and 8;
     # row 15 gives rows 13-14's output on the port's tiles
@@ -1359,6 +1497,10 @@ def main() -> int:
                   f"bit-exact")
         zd, bd = staged[name, "zstd"], staged[name, "zstd_big"]
         t_dec = time_ms(torch, lambda: zstd_decode.decompress_batch(zd.data, zd.sizes, CHUNK))
+        # row 18's fixed cost a call: the first 1 and 8 of those frames
+        small = {n: time_ms(torch, lambda: zstd_decode.decompress_batch(
+            zd.data[:n], zd.sizes[:n], CHUNK)) for n in (1, 8)}
+        print(f"[full] {json.dumps({'corpus': name, 'kernel': 'zstd_decode', 'chunks_ms': small})}")
         t_big = time_ms(torch, lambda: zstd_decode.decompress_batch_big(bd.data, bd.sizes,
                                                                         BIG_CHUNK),
                         iters=BIG_ITERS, warmup=1)
@@ -1372,6 +1514,56 @@ def main() -> int:
                    "staged_ratio": raw_bytes / int(sb.total_bytes), "decompress_ms": t,
                    "decompress_GBps": raw_bytes / t / 1e6}
             print(f"[full] {json.dumps(row)}")
+        # row 19's passes, each timed alone on the arguments it had in one more call
+        B = bd.num_chunks
+        lit_cap = zstd_decode.lit_cap_of(BIG_CHUNK, big=True)
+        kp = {}
+        zp.run(bd.data, bd.sizes, BIG_CHUNK, lit_cap, keep=kp)
+        nblk, nseq, nlit, _, most = kp["totals"]
+        blk = kp["blk"]
+        pass_ms = {
+            "zstd_chain": time_ms(torch, lambda: zp.fill_kernel(
+                bd.data, bd.sizes, BIG_CHUNK, lit_cap,
+                *zp.chain_kernel(bd.data, bd.sizes, BIG_CHUNK, lit_cap)[:2], nblk),
+                iters=BIG_ITERS, warmup=1),
+            "zstd_entropy": time_ms(torch, lambda: zp.entropy_kernel(bd.data, blk, nlit, nseq),
+                                    iters=BIG_ITERS, warmup=1),
+            "zstd_scan": time_ms(torch, lambda: zp.scan_kernel(
+                kp["fcount"], kp["bases"], kp["bout"], kp["bsym"], kp["berr"], BIG_CHUNK),
+                iters=BIG_ITERS, warmup=1),
+            "zstd_resolve": time_ms(torch, lambda: zp.resolve_kernel(
+                blk, kp["seqs"], kp["bstart"], kp["bin"], kp["fstat0"]), iters=BIG_ITERS,
+                warmup=1),
+            "zstd_zero": time_ms(torch, lambda: zp.zero_kernel(kp["fstat"], kp["fsize"],
+                                                               BIG_CHUNK),
+                                 iters=BIG_ITERS, warmup=1),
+            "zstd_execute": time_ms(torch, lambda: zp.execute_kernel(
+                bd.data, blk, kp["lits"], kp["seqs"], kp["offs"], kp["bstart"], kp["bout"],
+                kp["fstat"], kp["out0"], most > 1), iters=BIG_ITERS, warmup=1)}
+        # the bytes each pass must move on this data (inputs read once, outputs
+        # written once): headers and records, the compressed blocks, literals,
+        # sequences (20 B; resolve reads 12 B and writes 4 B of each), the
+        # rows' zero tails and the output
+        rec = blk.cpu()
+        btype = rec[:, zp.F_TYPE] & 3
+        comp_blocks = int(rec[btype == 2, zp.F_BSIZE].sum())
+        raw_blocks = int(rec[btype == 0, zp.F_BSIZE].sum()) + int((btype == 1).sum())
+        headers = (3 * nblk + int((rec[:, zp.F_SPOS] - rec[:, zp.F_POS])[btype == 2].sum())
+                   + int((rec[:, zp.F_SQ] - rec[:, zp.F_LIT_END])[btype == 2].sum())
+                   + int((rec[:, zp.F_NSEQ] > 0).sum()))
+        out_bytes = int(kp["fsize"][kp["fstat"] == 0].sum())
+        pass_bound = {
+            "zstd_chain": bytes_bound_ms(headers + 4 * B + 24 * B, 32 * B + 128 * nblk),
+            "zstd_entropy": bytes_bound_ms(comp_blocks + 128 * nblk, nlit + 20 * nseq + 24 * nblk),
+            "zstd_scan": bytes_bound_ms(56 * B + 24 * nblk, 32 * nblk + 12 * B),
+            "zstd_resolve": bytes_bound_ms(12 * nseq + 160 * nblk + 4 * B, 4 * nseq + 4 * B),
+            "zstd_zero": bytes_bound_ms(12 * B, B * BIG_CHUNK - out_bytes + 8 * B),
+            "zstd_execute": bytes_bound_ms(nlit + 20 * nseq + raw_blocks + 144 * nblk,
+                                           out_bytes)}
+        for k in ZSTD_PASSES:
+            kernel_ms[k] += pass_ms[k]
+            bound[k] += pass_bound[k]
+        print(f"[full] {json.dumps({'corpus': name, 'format': 'zstd', 'kernel': 'zstd_decode_big', 'passes_ms': pass_ms, 'passes_bound_ms': pass_bound, 'blocks': nblk, 'sequences': nseq, 'literals': nlit})}")
 
     def libzstd_reads(f_r) -> bool:
         return interop.zstd_decompress(f_r[0], len(f_r[1])) == f_r[1]
@@ -1739,7 +1931,11 @@ def main() -> int:
                         "bound_by": "bytes", "library_ms": library_ms.get(name)})
     print("[kernels] ms, bound_ms: the two full-width corpora summed (deflate_decode on "
           "the zlib-staged streams, deflate_encode_hist/emit in algo 1, zstd_decode on "
-          "1024 x 64 KiB and zstd_decode_big on 4 x 16 MiB libzstd-staged frames, "
+          "1024 x 64 KiB and zstd_decode_big on 4 x 16 MiB libzstd-staged frames (both the "
+          "passes as a whole; zstd_chain (count and fill) .. zstd_execute each pass of "
+          "zstd_decode_big alone, bound by the bytes it must move on this data; zstd_walk "
+          "the status-only frame walk on 1024 x 64 KiB frames marked by the chain for "
+          "64-byte rows, launches from the settle path's own run), "
           "zstd_encode_hist/zstd_encode in exact entropy, gdeflate_* in algo 1: "
           "gdeflate_encode is the emit mode, gdeflate_parse/exec read the port's algo-1 "
           "tiles; ans_encode/_wide are the walk alone, bound by the raw bytes read and the "

@@ -17,6 +17,7 @@ import pytest
 import torch
 import jax.numpy as jnp
 
+import tpucomp.batched as ref_batched
 import tpucomp.chunk as ref_chunk
 import tpucomp.constants as ref_constants
 import tpucomp.logging as ref_logging
@@ -204,8 +205,12 @@ def test_unported_paths_raise_not_implemented():
         batched.get_decompress_size("lz4", cb)
     with pytest.raises(NotImplementedError, match="formats/snappy.py"):
         batched.decompress("snappy", cb, 16, backend="xla")
-    with pytest.raises(ValueError, match="unknown backend"):
-        batched.decompress("lz4", cb, 16, backend="pallas")
+    # "pallas" on a format with no kernel raises the reference's ValueError
+    with pytest.raises(ValueError) as port_err:
+        batched._encode_fn("gzip", batched._get("gzip"), "pallas", torch.device("cpu"))
+    with pytest.raises(ValueError) as ref_err:
+        ref_batched._encode_fn("gzip", ref_batched._get("gzip"), "pallas")
+    assert str(port_err.value) == str(ref_err.value)
     with pytest.raises(NotImplementedError, match="formats/zstd.py"):   # the XLA decoder
         batched.decompress("zstd", cb, 16, backend="xla")
     big = chunk.ChunkBatch.from_bytes(b"abcdefgh" * 4, 65544, device="cpu")
@@ -228,7 +233,10 @@ def test_api_parity_shims():
 @pytest.mark.parametrize("kind", ["encode", "decode"])
 def test_backend_environment_overrides(monkeypatch, kind):
     """``TPUCOMP_ENCODE_BACKEND`` / ``TPUCOMP_DECODE_BACKEND`` steer
-    ``backend="auto"`` as in the reference; ``pallas`` means the kernels."""
+    ``backend="auto"`` as in the reference.  ``pallas``, from the variable or
+    the argument, is the kernel path on the card and its plain version on
+    CPU tensors, as the reference's interpret mode: the same statuses, sizes
+    and bytes as the reference on the same CPU batch."""
     from tpucomp_torch.ops import cuda as kc
     cb = chunk.ChunkBatch.from_bytes(b"abcdefgh" * 4, 16, device="cpu")
     comp, _ = batched.compress("lz4", cb)
@@ -239,12 +247,25 @@ def test_backend_environment_overrides(monkeypatch, kind):
     kernels = kc.KERNEL_ENCODERS if kind == "encode" else kc.KERNEL_DECODERS
     spec = batched._get("lz4")
     plain = spec.compress_batch if kind == "encode" else spec.decompress_batch
-    cpu = torch.device("cpu")
+    cpu, card = torch.device("cpu"), torch.device("cuda")
+    ref_cb = ref_chunk.ChunkBatch.from_bytes(b"abcdefgh" * 4, 16)
+    if kind == "encode":
+        want = ref_batched.compress("lz4", ref_cb, backend="pallas")
+    else:
+        ref_comp = ref_chunk.ChunkBatch(jnp.asarray(comp.data.numpy()),
+                                        jnp.asarray(comp.sizes.numpy()))
+        want = ref_batched.decompress("lz4", ref_comp, 16, backend="pallas")
+    want = [np.asarray(want[0].data), np.asarray(want[0].sizes), np.asarray(want[1])]
     assert resolve("lz4", spec, "auto", cpu) is plain
     monkeypatch.setenv(var, "pallas")
-    assert resolve("lz4", spec, "auto", cpu) is kernels["lz4"]
+    assert resolve("lz4", spec, "auto", cpu) is plain
+    assert resolve("lz4", spec, "auto", card) is kernels["lz4"]
+    for got in (run(), run(backend="pallas")):
+        np.testing.assert_array_equal(got[0].data.numpy(), want[0])
+        np.testing.assert_array_equal(got[0].sizes.numpy(), want[1])
+        np.testing.assert_array_equal(got[1].numpy(), want[2])
     with pytest.raises(ValueError, match="CUDA"):
-        run()
+        run(backend="kernel")                              # the kernel alone needs a card
     assert resolve("lz4", spec, "plain", cpu) is plain     # an explicit backend wins
     monkeypatch.setenv(var, "xla")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -254,8 +275,9 @@ def test_backend_environment_overrides(monkeypatch, kind):
     monkeypatch.setenv(var, "brotli")
     with pytest.raises(ValueError, match="unknown backend"):
         run()
-    with pytest.raises(ValueError, match="unknown backend"):
-        run(backend="pallas")                              # not a backend of the port
+    # Cascaded's kernel path is its fast decoder, not the registry's program
+    cas = kc.PLAIN_ENCODERS if kind == "encode" else kc.PLAIN_DECODERS
+    assert resolve("cascaded", batched._get("cascaded"), "pallas", cpu) is cas["cascaded"]
 
 
 @pytest.mark.parametrize("level", [0, 1, 2, 4])

@@ -336,6 +336,72 @@ def test_zstd_batched_dispatch_on_card(card):
         assert (st == Status.SUCCESS).all() and dec.to_bytes() == buf
 
 
+def _zstd_many_block_frames() -> list[bytes]:
+    """Frames of many blocks: libzstd at levels 1/3/19 over 1.5 MiB (twelve
+    blocks, matches across blocks), the port's multi-block encoder's frames
+    (block-local matches), and bit flips and cuts after the first block."""
+    raw = synth.mixed_corpus(3 << 19, seed=21).tobytes()
+    frames = [interop.zstd_compress(raw, level) for level in (1, 3, 19)]
+    n = 1 << 18
+    data = torch.from_numpy(np.frombuffer(raw[:2 * n], np.uint8).copy()).reshape(2, n)
+    comp, sizes, st = fzstd.compress_batch(data, torch.tensor([n, n - 999], dtype=torch.int32))
+    assert st.tolist() == [0, 0]
+    frames += [bytes(comp[i, :sizes[i]].numpy()) for i in range(2)]
+    rng = np.random.default_rng(21)
+    good = frames[1]
+    for _ in range(10):
+        b = bytearray(good)
+        b[rng.integers(len(good) // 8, len(good))] ^= 1 << rng.integers(0, 8)
+        frames.append(bytes(b))
+    return frames + [good[:len(good) // 2], good[:-1]]
+
+
+@pytest.mark.parametrize("out_cap", ["fits", 100_000])
+def test_zstd_passes_equal_plain_on_many_block_frames(card, out_cap):
+    """Row 19's passes on the card, each against its plain pass on the plain
+    passes' own inputs, and the whole against the plain passes and the walk."""
+    from tpucomp_torch.ops.cuda import zstd_passes as zp
+    if not interop.available()["zstd"]:
+        pytest.skip("libzstd is not installed")
+    cb = ChunkBatch.from_chunks(_zstd_many_block_frames(), device="cpu")
+    oc = 3 << 19 if out_cap == "fits" else out_cap
+    lit_cap = zstd_decode.lit_cap_of(oc, big=True)
+    k = {}
+    want = zp.run(cb.data, cb.sizes, oc, lit_cap, plain=True, keep=k)
+    assert _equal(want, zstd_decode.decompress_batch_big_plain(cb.data, cb.sizes, oc))
+    if out_cap == "fits":
+        assert (want[2][:5] == Status.SUCCESS).all()
+
+    def on(*xs):
+        return [x.to(card) for x in xs]
+
+    d, sz = on(cb.data, cb.sizes)
+    nblk, nseq, nlit, nover, most = k["totals"]
+    fcount, bases, totals = zp.chain_kernel(d, sz, oc, lit_cap)
+    assert _equal((fcount, bases), (k["fcount"], k["bases"])) and totals == k["totals"]
+    assert _equal((zp.fill_kernel(d, sz, oc, lit_cap, *on(k["fcount"], k["bases"]), nblk),),
+                  (k["blk"],))
+    assert _equal(zp.entropy_kernel(d, k["blk"].to(card), nlit, nseq),
+                  [k[x] for x in ("lits", "seqs", "bout", "bsym", "berr")])
+    assert _equal(zp.scan_kernel(*on(k["fcount"], k["bases"], k["bout"], k["bsym"], k["berr"]),
+                                 oc), [k[x] for x in ("bstart", "bin", "fsize", "fstat0")])
+    assert _equal(zp.resolve_kernel(*on(k["blk"], k["seqs"], k["bstart"], k["bin"], k["fstat0"])),
+                  (k["offs"], k["fstat1"]))
+    if nover:
+        assert _equal((zp.settle_kernel(d, sz, oc, lit_cap, k["fstat1"].to(card)),),
+                      (k["fstat"],))
+    out, osz, st = zp.zero_kernel(*on(k["fstat"], k["fsize"]), oc)
+    col = torch.arange(oc, device=card)[None, :]
+    assert _equal((torch.where(col >= osz[:, None], out, 0), osz, st), (k["out0"],) + want[1:])
+    for multi in {most > 1, True}:   # the narrow shape where it applies, and the wide
+        assert _equal((zp.execute_kernel(d, *on(k["blk"], k["lits"], k["seqs"], k["offs"],
+                                                k["bstart"], k["bout"], k["fstat"], k["out0"]),
+                                          multi),), want[:1])
+    before = zstd_decode.decompress_batch_big.launches
+    assert _equal(zstd_decode.decompress_batch_big(d, sz, oc), want)
+    assert zstd_decode.decompress_batch_big.launches == before + 1
+
+
 def _zstd_encode_batch() -> ChunkBatch:
     """64 KiB rows: mixed, mortgage-like, runs, random, the sequence-heavy row
     of tests/test_pallas_zstd.py:212-226, the period-16 stride, short sizes."""

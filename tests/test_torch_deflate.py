@@ -290,8 +290,7 @@ def ref():
             jnp.asarray(llh), jnp.asarray(dh))]
     gz = ChunkBatch.from_chunks(list(GZIP.values()), 4096, device="cpu")
     res["gzip_in"] = (gz.data.numpy(), gz.sizes.numpy())
-    # the port's frame outside the backend variables below: the port reads
-    # them too, and its "pallas" (its kernels) needs a card
+    # the port's frame, outside the backend variables below
     port_frame = _port_manager().compress(MANAGER_DATA).numpy().tobytes()
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(ref_crc32, "crc32_chunk", _host_crc32_chunk)

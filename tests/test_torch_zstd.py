@@ -84,6 +84,9 @@ def _frames() -> tuple[dict, dict]:
             raw[f"zs{lv}_{name}"] = r
     for lv in (3, 19):
         f[f"multiblock{lv}"], raw[f"multiblock{lv}"] = _multiblock(_MIX, lv, 4), _MIX
+    # sixteen blocks: repeat tables, treeless literals and repeat offsets at
+    # block heads, which the block-parallel passes compose across blocks
+    f["multiblock1_16"], raw["multiblock1_16"] = _multiblock(_MIX, 1, 16), _MIX
     for lv in (-5, 1, 3, 19):
         f[f"libzstd{lv}"], raw[f"libzstd{lv}"] = interop.zstd_compress(_TEXT, lv), _TEXT
     f["checksum"] = zstandard.ZstdCompressor(level=3, write_checksum=True).compress(_TEXT)

@@ -16,9 +16,12 @@ C function families (``doc/lowlevel_c_quickstart.md:32-137``).
 
 * ``"auto"`` — the Hopper kernel for CUDA tensors, the plain version for CPU
   tensors; ``TPUCOMP_ENCODE_BACKEND`` / ``TPUCOMP_DECODE_BACKEND`` override it
-  (the reference's variables; their value ``"pallas"`` means ``"kernel"``);
-* ``"kernel"`` — the Hopper kernel (the reference's ``"pallas"``); raises for
-  CPU tensors;
+  (the reference's variables);
+* ``"kernel"`` — the Hopper kernel; raises for CPU tensors;
+* ``"pallas"`` — the reference's name for its kernel path, from the argument
+  or the variables: the Hopper kernel for CUDA tensors, its plain version for
+  CPU tensors (the role of the reference's interpret mode); a format with no
+  kernel raises the reference's ``ValueError``;
 * ``"plain"`` — the plain version, on any device (for tests and checks);
 * ``"xla"`` — the reference's log-depth program: for ``cascaded`` the
   registered general program (as the reference's ``xla``), for ``zstd``
@@ -160,14 +163,17 @@ _XLA_ENTRIES = {("cascaded", "encoder"): None, ("cascaded", "decoder"): None,
                 ("zstd", "encoder"): fzstd.compress_batch}
 
 
-def _impl(fmt: str, backend: str, on_cuda: bool, kernels: dict, plain: Callable,
-          kind: str) -> Callable:
+def _impl(fmt: str, backend: str, on_cuda: bool, kernels: dict, plains: dict,
+          plain: Callable, kind: str) -> Callable:
     """Resolve the implementation for ``backend`` (see the module docstring)."""
     if backend == "auto":
         backend = os.environ.get(_ENV_BACKEND[kind], "auto")
-        backend = "kernel" if backend == "pallas" else backend
     if backend == "auto":
         backend = "kernel" if on_cuda and fmt in kernels else "plain"
+    if backend == "pallas":
+        if fmt not in kernels:
+            raise ValueError(f"no Pallas {kind} for {fmt!r}; available: {sorted(kernels)}")
+        return kernels[fmt] if on_cuda else plains.get(fmt, plain)
     if backend == "kernel":
         try:
             return kernels[fmt]
@@ -180,21 +186,21 @@ def _impl(fmt: str, backend: str, on_cuda: bool, kernels: dict, plain: Callable,
         if (fmt, kind) in _XLA_ENTRIES:
             return _XLA_ENTRIES[fmt, kind] or plain
         raise NotImplementedError(f"backend 'xla': {_LOG_DEPTH_TODO.format(fmt=fmt)}")
-    raise ValueError(f"unknown backend {backend!r} (auto/kernel/plain/xla)")
+    raise ValueError(f"unknown backend {backend!r} (auto/kernel/pallas/plain/xla)")
 
 
 def _encode_fn(fmt: str, spec: CodecSpec, backend: str, device: torch.device) -> Callable:
     """The encode implementation for ``backend`` on ``device`` (the
     reference's ``_encode_fn``; the Manager calls it directly)."""
     from tpucomp_torch.ops import cuda as kc
-    return _impl(fmt, backend, device.type == "cuda", kc.KERNEL_ENCODERS,
+    return _impl(fmt, backend, device.type == "cuda", kc.KERNEL_ENCODERS, kc.PLAIN_ENCODERS,
                  spec.compress_batch, "encoder")
 
 
 def _decode_fn(fmt: str, spec: CodecSpec, backend: str, device: torch.device) -> Callable:
     """The decode implementation for ``backend`` on ``device``."""
     from tpucomp_torch.ops import cuda as kc
-    return _impl(fmt, backend, device.type == "cuda", kc.KERNEL_DECODERS,
+    return _impl(fmt, backend, device.type == "cuda", kc.KERNEL_DECODERS, kc.PLAIN_DECODERS,
                  spec.decompress_batch, "decoder")
 
 

@@ -18,8 +18,10 @@ sits its plain version with the same signature.
 - :mod:`.deflate_encode` — the Deflate walk over :func:`tpucomp_torch.ops
   .match.candidates2` in modes fixed, hist and emit
   (``csrc/deflate_encode.cu``), with the dynamic tables in torch ops.
-- :mod:`.zstd_decode` — the RFC 8878 frame decoder (``csrc/zstd_decode.cu``),
-  one kernel behind the reference's two wrappers, chosen by its dispatch gate.
+- :mod:`.zstd_decode` — the RFC 8878 frame decoder behind the reference's two
+  wrappers, chosen by its dispatch gate: both run :mod:`.zstd_passes`, the
+  block-parallel passes (``csrc/zstd_passes.cu``), with the frame walk
+  (``csrc/zstd_decode.cu``) for frames that cannot fit their ``out_cap``.
 - :mod:`.zstd_encode` — the Zstandard walk over :func:`tpucomp_torch.ops
   .match.candidates2` in modes hist and full (``csrc/zstd_encode.cu``), with
   the FSE and Huffman tables in torch ops; chunks up to 64 KiB (wider ones
@@ -53,6 +55,8 @@ sits its plain version with the same signature.
 ``KERNEL_DECODERS`` / ``KERNEL_ENCODERS`` map a format name to the kernel
 path, a drop-in for the registry's ``decompress_batch`` / ``compress_batch``
 (same signature and semantics).  They take CUDA tensors and raise for others.
+``PLAIN_DECODERS`` / ``PLAIN_ENCODERS`` hold a kernel path's plain version
+where the registry's entry is another program.
 """
 from __future__ import annotations
 
@@ -159,6 +163,17 @@ def _cascaded_compress_batch(data, sizes, opts, out_cap):
     return cascaded_fast.compress_batch(data, sizes, opts, out_cap)
 
 
+def _cascaded_decompress_plain(comp, comp_sizes, out_cap):
+    """The fast path with row 26's plain version, on any device."""
+    from tpucomp_torch.ops import cascaded_fast
+    return cascaded_fast.decompress_batch(comp, comp_sizes, out_cap, plain=True)
+
+
+def _cascaded_compress_plain(data, sizes, opts, out_cap):
+    from tpucomp_torch.ops import cascaded_fast
+    return cascaded_fast.compress_batch(data, sizes, opts, out_cap)
+
+
 KERNEL_DECODERS = {
     "lz4": _lz4_decompress_batch,
     "snappy": _snappy_decompress_batch,
@@ -179,3 +194,9 @@ KERNEL_ENCODERS = {
     "ans": _ans_compress_batch,
     "cascaded": _cascaded_compress_batch,
 }
+
+# The kernel paths' plain versions where they are not the registry's entry
+# (Cascaded's is the general program): ``backend="pallas"`` takes these for
+# CPU tensors, as the reference's interpret mode runs its Pallas path.
+PLAIN_DECODERS = {"cascaded": _cascaded_decompress_plain}
+PLAIN_ENCODERS = {"cascaded": _cascaded_compress_plain}

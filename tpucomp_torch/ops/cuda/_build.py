@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("lz4_decode", "lz4_encode", "snappy_decode", "snappy_encode",
-           "deflate_decode", "deflate_encode", "zstd_decode", "zstd_encode",
+           "deflate_decode", "deflate_encode", "zstd_decode", "zstd_passes", "zstd_encode",
            "gdeflate_vdecode", "gdeflate_encode", "ans_decode", "ans_encode",
            "cascaded_expand", "hash_encode", "gdeflate_decode", "probe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,19 +1,22 @@
-"""Batched Zstandard (RFC 8878) frame decode: the Hopper kernel and its plain version.
+"""Batched Zstandard (RFC 8878) frame decode: the reference's two wrappers
+on the card, the frame walk kernel, and their plain version.
 
 Port of :mod:`tpucomp.ops.pallas.zstd_decode` (``_kernel`` behind its two
-wrappers ``decompress_batch`` and ``decompress_batch_big``).  The kernel is
-``csrc/zstd_decode.cu`` (one warp per chunk; its header says what it
-replaces, what bounds it and how it is built).  On the TPU the two wrappers
-differ in where the bytes live (a chunk-resident VMEM block, or windows over
-HBM for chunks up to 16 MiB); on the card the output row lives in device
-memory either way, so they are one kernel and differ only in the literal
-capacity ``lit_cap`` that bounds a block's regenerated literals:
-``min(128 KiB, round_up(out_cap, 128))`` for :func:`decompress_batch` and
-128 KiB for :func:`decompress_batch_big`.  A block with more literals than
-``lit_cap`` is ``ERROR_CANNOT_DECOMPRESS``, so a frame can fail under the
-first wrapper and be merely too big for the output under the second.
-:func:`dispatch` chooses the wrapper as the reference's batched dispatch does
-(``tpucomp/ops/pallas/__init__.py:100-123``).
+wrappers ``decompress_batch`` and ``decompress_batch_big``).  On the TPU the
+two wrappers differ in where the bytes live (a chunk-resident VMEM block, or
+windows over HBM for chunks up to 16 MiB); on the card the output row lives
+in device memory either way, so both run the block-parallel passes of
+:mod:`tpucomp_torch.ops.cuda.zstd_passes` (``csrc/zstd_passes.cu``) and
+differ only in the literal capacity ``lit_cap`` that bounds a block's
+regenerated literals: ``min(128 KiB, round_up(out_cap, 128))`` for
+:func:`decompress_batch` and 128 KiB for :func:`decompress_batch_big`.  A
+block with more literals than ``lit_cap`` is ``ERROR_CANNOT_DECOMPRESS``, so
+a frame can fail under the first wrapper and be merely too big for the
+output under the second.  :func:`dispatch` chooses the wrapper as the
+reference's batched dispatch does (``tpucomp/ops/pallas/__init__.py:100-123``).
+The frame walk, one warp a frame (``csrc/zstd_decode.cu``, launched by
+:func:`tpucomp_torch.ops.cuda.zstd_passes.settle_kernel`), gives the status
+alone of the frames whose smallest output already passes ``out_cap``.
 
 The plain version walks each frame in Python with the reference's
 semantics, statuses included: frame header (magic, reserved bit, no
@@ -27,6 +30,8 @@ Bytes at and past ``comp_cap`` read as 0 (a negative index reads byte
 would pass ``out_cap`` is not written but the walk goes on, so an error later
 in the frame wins over ``ERROR_OUTPUT_BUFFER_TOO_SMALL``; an error settles
 the status, so the walk stops there (the reference walks on without effect).
+:class:`Row` and its helpers are the frame's building blocks, which the plain
+passes share.
 
 Contract (the reference's): ``comp uint8[B, comp_cap]`` plus ``comp_sizes
 int32[B]`` -> ``(out uint8[B, out_cap], out_sizes int32[B], statuses
@@ -34,8 +39,6 @@ int32[B])``; bytes past each size are zero, a failed chunk has size 0 and a
 zero row.
 """
 from __future__ import annotations
-
-import ctypes
 
 import numpy as np
 import torch
@@ -45,7 +48,6 @@ from tpucomp_torch.constants import Status
 from tpucomp_torch.formats.zstd import (LL_BASE, LL_BITS, LL_DEFAULT, LL_DEFAULT_ACC, MAGIC,
                                         ML_BASE, ML_BITS, ML_DEFAULT, ML_DEFAULT_ACC,
                                         OF_DEFAULT, OF_DEFAULT_ACC)
-from tpucomp_torch.ops.cuda import _build
 
 HUF_CAP = 2048          # 2^11: literal Huffman max_bits <= 11
 FSE_CAP = 512           # 2^9: sequence table accuracy logs <= 9
@@ -105,44 +107,49 @@ def _fse_build(tab: list, norm: list, nsym: int, acc: int, tbase: int) -> None:
         tab[tbase + i] = (((x << nb) - size) << 16) | (nb << 8) | s
 
 
-def _decode_chunk(row: bytes, csize: int, out_cap: int,
-                  lit_cap: int) -> tuple[bytearray, int, int]:
-    """One frame -> (output row of out_cap bytes, size, status).  ``row`` is
-    the chunk's whole row of ``comp_cap`` bytes."""
-    cap = len(row)
+class Row:
+    """A compressed row of ``comp_cap`` bytes read as the reference reads it:
+    bytes at and past ``comp_cap`` read as 0, a negative index reads byte
+    ``i & 3``.  Its methods are the frame's building blocks, shared by the
+    walk (:func:`_decode_chunk`) and the plain passes of
+    :mod:`tpucomp_torch.ops.cuda.zstd_passes`."""
 
-    def getb(i: int) -> int:
+    def __init__(self, row: bytes):
+        self.row = row
+        self.cap = len(row)
+
+    def getb(self, i: int) -> int:
         if i >= 0:
-            return row[i] if i < cap else 0
-        return row[i & 3] if (i & 3) < cap else 0
+            return self.row[i] if i < self.cap else 0
+        return self.row[i & 3] if (i & 3) < self.cap else 0
 
-    def bits(pos: int, n: int) -> int:                 # n <= 30 bits at pos >= 0
+    def bits(self, pos: int, n: int) -> int:           # n <= 30 bits at pos >= 0
         p = pos >> 3
-        return (int.from_bytes(row[p:p + 5], "little") >> (pos & 7)) & ((1 << n) - 1)
+        return (int.from_bytes(self.row[p:p + 5], "little") >> (pos & 7)) & ((1 << n) - 1)
 
-    def bwd_init(start: int, nbytes: int) -> tuple[int, int, bool]:
+    def span(self, start: int, n: int) -> bytes:
+        """``n`` bytes from ``start >= 0``, zeros past the row."""
+        b = self.row[start:start + n]
+        return b + bytes(n - len(b))
+
+    def bwd_init(self, start: int, nbytes: int) -> tuple[int, int, bool]:
         """-> (base bit, bits left, err) of a backward stream: the top set
         bit of its last byte is the padding marker."""
-        last = getb(start + nbytes - 1)
+        last = self.getb(start + nbytes - 1)
         return start * 8, (nbytes - 1) * 8 + _bitlen(last, 8) - 1, nbytes <= 0 or last == 0
 
-    def bwd_read(base: int, left: int, n: int) -> tuple[int, int]:
+    def bwd_read(self, base: int, left: int, n: int) -> tuple[int, int]:
         """The top n bits below ``left``; on underflow zeros pad from the bottom."""
         left2 = left - n
         if n <= 0:
             return 0, left2
         if left2 >= 0:
-            return bits(base + left2, n), left2
-        return bits(base, max(left, 0)) << min(-left2, 30), left2
+            return self.bits(base + left2, n), left2
+        return self.bits(base, max(left, 0)) << min(-left2, 30), left2
 
-    tab = [0] * FSE_TOTAL
-    huf = [0] * HUF_CAP
-    lit = bytearray(lit_cap)
-    out = bytearray(out_cap)
-    fail = bytearray(out_cap), 0, int(Status.ERROR_CANNOT_DECOMPRESS)
-
-    def read_ncount(bp: int, max_sym: int) -> tuple[int, int, list, bool]:
+    def read_ncount(self, bp: int, max_sym: int) -> tuple[int, int, list, bool]:
         """Normalized counts at bit bp -> (acc, next bp, counts, err)."""
+        bits = self.bits
         acc = bits(bp, 4) + 5
         norm = [0] * 64
         bp, rem, n, prev0 = bp + 4, (1 << acc) + 1, 0, False
@@ -171,8 +178,33 @@ def _decode_chunk(row: bytes, csize: int, out_cap: int,
             prev0 = cnt == 0
         return acc, bp, norm[:n], acc > 9 or rem != 1
 
-    def huf_weights(tree_pos: int) -> tuple[list, int, bool]:
-        """-> (weights incl. the implied last one, tree bytes, err)."""
+    def seq_table(self, tab: list, name: str, mode: int, sq: int) -> tuple[int, int, bool]:
+        """One sequence table of ``mode`` (0 predefined, 1 RLE, 2 FSE; 3,
+        repeat, reads nothing) from byte ``sq`` into ``tab`` -> (the next
+        byte, its accuracy log or -1 for a repeat, err).  RLE writes entry 0
+        only, at accuracy 0."""
+        norm, dacc, tbase, msym = _PREDEF[name]
+        if mode == 0:
+            _fse_build(tab, norm, len(norm), dacc, tbase)
+            return sq, dacc, False
+        if mode == 1:
+            sym = self.getb(sq)
+            if sym > msym:
+                return sq, 0, True
+            tab[tbase] = sym
+            return sq + 1, 0, False
+        if mode == 2:
+            acc, bp, cnts, e = self.read_ncount(sq * 8, msym)
+            if e:
+                return sq, acc, True
+            _fse_build(tab, cnts, len(cnts), acc, tbase)
+            return (bp + 7) >> 3, acc, False
+        return sq, -1, False
+
+    def huf_weights(self, tree_pos: int, tab: list) -> tuple[list, int, bool]:
+        """The tree at ``tree_pos`` -> (weights incl. the implied last one,
+        tree bytes, err); FSE-coded weights use ``tab[TAB_W:]``."""
+        getb = self.getb
         thdr = getb(tree_pos)
         w = [0] * 288
         if thdr >= 128:                                # direct 4-bit weights
@@ -182,21 +214,21 @@ def _decode_chunk(row: bytes, csize: int, out_cap: int,
                 w[i] = by >> 4 if i % 2 == 0 else by & 0xF
             tree_bytes = 1 + ((n + 1) >> 1)
         else:                                          # FSE-coded, two states
-            acc, bp, norm, e = read_ncount((tree_pos + 1) * 8, 32)
+            acc, bp, norm, e = self.read_ncount((tree_pos + 1) * 8, 32)
             if e or acc > 6:
                 return w, 0, True
             _fse_build(tab, norm, len(norm), acc, TAB_W)
             start = (bp + 7) >> 3
-            base, left, e = bwd_init(start, tree_pos + 1 + thdr - start)
-            s0, left = bwd_read(base, left, acc)
-            s1, left = bwd_read(base, left, acc)
+            base, left, e = self.bwd_init(start, tree_pos + 1 + thdr - start)
+            s0, left = self.bwd_read(base, left, acc)
+            s1, left = self.bwd_read(base, left, acc)
             if e or left < 0:
                 return w, 0, True
             n = 0
             while n < 255:
                 ent = tab[TAB_W + s0]
                 w[n] = ent & 0xFF
-                v, left = bwd_read(base, left, (ent >> 8) & 0xFF)
+                v, left = self.bwd_read(base, left, (ent >> 8) & 0xFF)
                 n += 1
                 if left < 0:                           # emit the other state, stop
                     w[n] = tab[TAB_W + s1] & 0xFF
@@ -205,7 +237,7 @@ def _decode_chunk(row: bytes, csize: int, out_cap: int,
                 s0 = ((ent >> 16) & 0xFFFF) + v
                 ent = tab[TAB_W + s1]
                 w[n] = ent & 0xFF
-                v, left = bwd_read(base, left, (ent >> 8) & 0xFF)
+                v, left = self.bwd_read(base, left, (ent >> 8) & 0xFF)
                 n += 1
                 if left < 0:
                     w[n] = tab[TAB_W + s0] & 0xFF
@@ -220,33 +252,20 @@ def _decode_chunk(row: bytes, csize: int, out_cap: int,
         w[n] = _bitlen(rest, 20)
         return w[:n + 1], tree_bytes, total <= 0 or rest <= 0 or (rest & (rest - 1)) != 0
 
-    def huf_build(w: list) -> tuple[int, bool]:
-        """Weights -> the single-level table in ``huf``; (max_bits, err)."""
-        total = sum(1 << (min(x, 12) - 1) for x in w if x > 0)
-        max_bits = _bitlen(total, 20) - 1
-        if max_bits < 1 or max_bits > 11:
-            return max_bits, True
-        size = 1 << max_bits
-        huf[:] = [0] * HUF_CAP
-        p = 0
-        for wt in range(1, 13):                        # ascending weight, then symbol
-            run = 1 << (wt - 1)
-            ent = max_bits + 1 - wt
-            for s, x in enumerate(w):
-                if x == wt:
-                    if p + run <= size:
-                        huf[p:p + run] = [(s << 8) | ent] * run
-                    p += run
-        return max_bits, p != size
-
-    def huf_stream(start: int, nbytes: int, count: int, dst: int, mb: int) -> bool:
-        """One backward Huffman stream into lit[dst:dst + count]; -> err."""
-        base, left, e = bwd_init(start, nbytes)
+    def huf_stream(self, huf: list, start: int, nbytes: int, count: int, lit, dst: int,
+                   mb: int) -> bool:
+        """One backward Huffman stream of ``count`` symbols into
+        ``lit[dst:dst + count]``; -> err."""
+        base, left, e = self.bwd_init(start, nbytes)
         if e:
             return True
+        row = self.row
         for i in range(count):
             nn = min(max(left, 0), mb)
-            ent = huf[bits(base + max(left - mb, 0), nn) << (mb - nn)]
+            pos = base + max(left - mb, 0)
+            p = pos >> 3
+            v = (int.from_bytes(row[p:p + 5], "little") >> (pos & 7)) & ((1 << nn) - 1)
+            ent = huf[v << (mb - nn)]
             nb = ent & 0xFF
             if nb == 0:
                 return True
@@ -256,18 +275,114 @@ def _decode_chunk(row: bytes, csize: int, out_cap: int,
                 return True
         return left != 0
 
-    # ---- frame header
-    magic = getb(0) | (getb(1) << 8) | (getb(2) << 16) | (getb(3) << 24)
-    fhd = getb(4)
-    if csize < 5 or magic != MAGIC or (fhd >> 3) & 1 or fhd & 3:
+    def literals(self, pos: int, block_end: int):
+        """The literals section header at ``pos`` -> (type, size format,
+        regenerated size, first byte after the header, the section's end)."""
+        getb = self.getb
+        lsh = getb(pos)
+        lit_type, fmt = lsh & 3, (lsh >> 2) & 3
+        if lit_type <= 1:                              # raw / RLE
+            hdr = 2 if fmt == 1 else 3 if fmt == 3 else 1
+            regen = ((lsh >> 4) | (getb(pos + 1) << 4) if fmt == 1 else
+                     (lsh >> 4) | (getb(pos + 1) << 4) | (getb(pos + 2) << 12) if fmt == 3
+                     else lsh >> 3)
+            return lit_type, fmt, regen, pos + hdr, pos + hdr + (regen if lit_type == 0 else 1)
+        hdr, nbits = (3, 10) if fmt <= 1 else (4, 14) if fmt == 2 else (5, 18)
+        w40 = (getb(pos) | (getb(pos + 1) << 8) | (getb(pos + 2) << 16)
+               | (getb(pos + 3) << 24) | (getb(pos + 4) << 32))
+        mask = (1 << nbits) - 1
+        regen, cs = (w40 >> 4) & mask, (w40 >> (4 + nbits)) & mask
+        return lit_type, fmt, regen, pos + hdr, pos + hdr + cs
+
+    def nseq(self, lit_end: int) -> tuple[int, int]:
+        """The sequence count at ``lit_end`` -> (nseq, the byte after it)."""
+        getb = self.getb
+        b0 = getb(lit_end)
+        if b0 < 128:
+            return b0, lit_end + 1
+        if b0 < 255:
+            return ((b0 - 128) << 8) + getb(lit_end + 1), lit_end + 2
+        return getb(lit_end + 1) + (getb(lit_end + 2) << 8) + 0x7F00, lit_end + 3
+
+    def frame_start(self, csize: int) -> int:
+        """The first block's position, or -1 for a header the decoder refuses
+        (size, magic, reserved bit, dictionary ID)."""
+        getb = self.getb
+        magic = getb(0) | (getb(1) << 8) | (getb(2) << 16) | (getb(3) << 24)
+        fhd = getb(4)
+        if csize < 5 or magic != MAGIC or (fhd >> 3) & 1 or fhd & 3:
+            return -1
+        single = (fhd >> 5) & 1
+        return 5 + (1 - single) + (single, 2, 4, 8)[fhd >> 6]
+
+    def block_header(self, pos: int) -> tuple[bool, int, int]:
+        """-> (last, type, size) of the 3-byte block header at ``pos``."""
+        bh = self.getb(pos) | (self.getb(pos + 1) << 8) | (self.getb(pos + 2) << 16)
+        return bool(bh & 1), (bh >> 1) & 3, bh >> 3
+
+
+def huf_build(w: list, huf: list) -> tuple[int, bool]:
+    """Weights -> the single-level table in ``huf``; (max_bits, err)."""
+    total = sum(1 << (min(x, 12) - 1) for x in w if x > 0)
+    max_bits = _bitlen(total, 20) - 1
+    if max_bits < 1 or max_bits > 11:
+        return max_bits, True
+    size = 1 << max_bits
+    huf[:] = [0] * HUF_CAP
+    p = 0
+    for wt in range(1, 13):                            # ascending weight, then symbol
+        run = 1 << (wt - 1)
+        ent = max_bits + 1 - wt
+        for s, x in enumerate(w):
+            if x == wt:
+                if p + run <= size:
+                    huf[p:p + run] = [(s << 8) | ent] * run
+                p += run
+    return max_bits, p != size
+
+
+def huf_literals(R: Row, huf: list, fmt: int, regen: int, spos: int, lit_end: int, lit,
+                 dst: int, hbits: int) -> bool:
+    """Huffman-coded literals in one stream or four (the jump table at
+    ``spos``) into ``lit[dst:dst + regen]``; -> err."""
+    if fmt == 0:
+        return R.huf_stream(huf, spos, lit_end - spos, regen, lit, dst, hbits)
+    getb = R.getb
+    j1 = getb(spos) | (getb(spos + 1) << 8)
+    j2 = getb(spos + 2) | (getb(spos + 3) << 8)
+    j3 = getb(spos + 4) | (getb(spos + 5) << 8)
+    sbase = spos + 6
+    j4 = lit_end - sbase - j1 - j2 - j3
+    per = (regen + 3) >> 2
+    cl = regen - 3 * per
+    if j4 <= 0 or cl < 0:
+        return True
+    for k, (start, nb, count) in enumerate((
+            (sbase, j1, per), (sbase + j1, j2, per),
+            (sbase + j1 + j2, j3, per), (sbase + j1 + j2 + j3, j4, cl))):
+        if R.huf_stream(huf, start, nb, count, lit, dst + k * per, hbits):
+            return True
+    return False
+
+
+def _decode_chunk(row: bytes, csize: int, out_cap: int, lit_cap: int,
+                  trace: dict | None = None) -> tuple[bytearray, int, int]:
+    """The walk: one frame -> (output row of out_cap bytes, size, status).
+    ``row`` is the chunk's whole row of ``comp_cap`` bytes.  With ``trace``,
+    it records ``(op, r0, r1, r2)`` at each block of nonzero size under
+    ``"blocks"`` and each sequence's offset under ``"offs"``."""
+    R = Row(row)
+    getb = R.getb
+    tab = [0] * FSE_TOTAL
+    huf = [0] * HUF_CAP
+    lit = bytearray(lit_cap)
+    out = bytearray(out_cap)
+    fail = bytearray(out_cap), 0, int(Status.ERROR_CANNOT_DECOMPRESS)
+    pos = R.frame_start(csize)
+    if pos < 0:
         return fail
-    single = (fhd >> 5) & 1
-    pos = 5 + (1 - single) + (single, 2, 4, 8)[fhd >> 6]
     # the predefined tables, so that repeat mode in the first block resolves
-    accs = {}
-    for name, (norm, acc, tbase, _) in _PREDEF.items():
-        _fse_build(tab, norm, len(norm), acc, tbase)
-        accs[name] = acc
+    accs = {name: R.seq_table(tab, name, 0, 0)[1] for name in _PREDEF}
     op, done, r0, r1, r2, hbits = 0, False, 1, 4, 8, 0
 
     def emit(src: bytes | bytearray, n: int) -> None:
@@ -275,16 +390,16 @@ def _decode_chunk(row: bytes, csize: int, out_cap: int,
             out[op:op + n] = src
 
     while not done and pos + 3 <= csize:
-        bh = getb(pos) | (getb(pos + 1) << 8) | (getb(pos + 2) << 16)
-        done, btype, bsize = bool(bh & 1), (bh >> 1) & 3, bh >> 3
+        done, btype, bsize = R.block_header(pos)
         pos += 3
         if btype == 3 or bsize > BLOCK_CAP:
             return fail
+        if trace is not None and (btype == 2 or bsize):
+            trace["blocks"].append((op, r0, r1, r2))
         if btype == 0:                                 # raw
             if pos + bsize > csize:
                 return fail
-            blk = row[pos:pos + bsize]
-            emit(blk + bytes(bsize - len(blk)), bsize)
+            emit(R.span(pos, bsize), bsize)
             pos, op = pos + bsize, op + bsize
             continue
         if btype == 1:                                 # RLE
@@ -297,67 +412,29 @@ def _decode_chunk(row: bytes, csize: int, out_cap: int,
         if block_end > csize:
             return fail
         # -- literals section
-        lsh = getb(pos)
-        lit_type, fmt = lsh & 3, (lsh >> 2) & 3
-        if lit_type <= 1:                              # raw / RLE literals
-            hdr = 2 if fmt == 1 else 3 if fmt == 3 else 1
-            regen = ((lsh >> 4) | (getb(pos + 1) << 4) if fmt == 1 else
-                     (lsh >> 4) | (getb(pos + 1) << 4) | (getb(pos + 2) << 12) if fmt == 3
-                     else lsh >> 3)
-            lit_end = pos + hdr + (regen if lit_type == 0 else 1)
-            if regen > lit_cap or lit_end > block_end:
-                return fail
-            if lit_type == 0:
-                src = row[pos + hdr:pos + hdr + regen]
-                lit[:regen] = src + bytes(regen - len(src))
-            else:
-                lit[:regen] = bytes([getb(pos + hdr)]) * regen
+        lit_type, fmt, regen, spos, lit_end = R.literals(pos, block_end)
+        if regen > lit_cap or lit_end > block_end:
+            return fail
+        if lit_type == 0:
+            lit[:regen] = R.span(spos, regen)
+        elif lit_type == 1:
+            lit[:regen] = bytes([getb(spos)]) * regen
         else:                                          # Huffman / treeless
-            hdr, nbits = (3, 10) if fmt <= 1 else (4, 14) if fmt == 2 else (5, 18)
-            w40 = (getb(pos) | (getb(pos + 1) << 8) | (getb(pos + 2) << 16)
-                   | (getb(pos + 3) << 24) | (getb(pos + 4) << 32))
-            mask = (1 << nbits) - 1
-            regen, cs = (w40 >> 4) & mask, (w40 >> (4 + nbits)) & mask
-            lit_end = pos + hdr + cs
-            spos = pos + hdr
-            if regen > lit_cap or lit_end > block_end:
-                return fail
             if lit_type == 3:
                 if hbits == 0:
                     return fail
             else:
-                w, tree_bytes, e = huf_weights(spos)
+                w, tree_bytes, e = R.huf_weights(spos, tab)
                 if e:
                     return fail
-                hbits, e = huf_build(w)
+                hbits, e = huf_build(w, huf)
                 if e:
                     return fail
                 spos += tree_bytes
-            if fmt >= 1:                               # four streams
-                j1 = getb(spos) | (getb(spos + 1) << 8)
-                j2 = getb(spos + 2) | (getb(spos + 3) << 8)
-                j3 = getb(spos + 4) | (getb(spos + 5) << 8)
-                sbase = spos + 6
-                j4 = lit_end - sbase - j1 - j2 - j3
-                per = (regen + 3) >> 2
-                cl = regen - 3 * per
-                if j4 <= 0 or cl < 0:
-                    return fail
-                for k, (start, nb, count) in enumerate((
-                        (sbase, j1, per), (sbase + j1, j2, per),
-                        (sbase + j1 + j2, j3, per), (sbase + j1 + j2 + j3, j4, cl))):
-                    if huf_stream(start, nb, count, k * per, hbits):
-                        return fail
-            elif huf_stream(spos, lit_end - spos, regen, 0, hbits):
+            if huf_literals(R, huf, fmt, regen, spos, lit_end, lit, 0, hbits):
                 return fail
         # -- sequences section
-        b0 = getb(lit_end)
-        if b0 < 128:
-            nseq, sq = b0, lit_end + 1
-        elif b0 < 255:
-            nseq, sq = ((b0 - 128) << 8) + getb(lit_end + 1), lit_end + 2
-        else:
-            nseq, sq = getb(lit_end + 1) + (getb(lit_end + 2) << 8) + 0x7F00, lit_end + 3
+        nseq, sq = R.nseq(lit_end)
         lit_pos = 0
         if nseq > 0:
             scm = getb(sq)
@@ -365,27 +442,15 @@ def _decode_chunk(row: bytes, csize: int, out_cap: int,
             if scm & 3:
                 return fail
             for name, shift in (("ll", 6), ("of", 4), ("ml", 2)):
-                norm, dacc, tbase, msym = _PREDEF[name]
-                mode = (scm >> shift) & 3
-                if mode == 0:
-                    _fse_build(tab, norm, len(norm), dacc, tbase)
-                    accs[name] = dacc
-                elif mode == 1:
-                    sym = getb(sq)
-                    if sym > msym:
-                        return fail
-                    tab[tbase] = sym
-                    sq, accs[name] = sq + 1, 0
-                elif mode == 2:
-                    acc, bp, cnts, e = read_ncount(sq * 8, msym)
-                    if e:
-                        return fail
-                    _fse_build(tab, cnts, len(cnts), acc, tbase)
-                    sq, accs[name] = (bp + 7) >> 3, acc
-            base, left, e = bwd_init(sq, block_end - sq)
-            ll_s, left = bwd_read(base, left, accs["ll"])
-            of_s, left = bwd_read(base, left, accs["of"])
-            ml_s, left = bwd_read(base, left, accs["ml"])
+                sq, acc, e = R.seq_table(tab, name, (scm >> shift) & 3, sq)
+                if e:
+                    return fail
+                if acc >= 0:
+                    accs[name] = acc
+            base, left, e = R.bwd_init(sq, block_end - sq)
+            ll_s, left = R.bwd_read(base, left, accs["ll"])
+            of_s, left = R.bwd_read(base, left, accs["of"])
+            ml_s, left = R.bwd_read(base, left, accs["ml"])
             if e or left < 0:
                 return fail
             for i in range(nseq):
@@ -393,13 +458,13 @@ def _decode_chunk(row: bytes, csize: int, out_cap: int,
                 of_sym = of_e & 0xFF
                 if of_sym > 30:
                     return fail
-                ofb, left = bwd_read(base, left, of_sym)
+                ofb, left = R.bwd_read(base, left, of_sym)
                 ofv = (1 << of_sym) + ofb
                 mbase, mnb = _ML[min(ml_e & 0xFF, 52)]
-                mlb, left = bwd_read(base, left, mnb)
+                mlb, left = R.bwd_read(base, left, mnb)
                 ml = mbase + mlb
                 lbase, lnb = _LL[min(ll_e & 0xFF, 35)]
-                llb, left = bwd_read(base, left, lnb)
+                llb, left = R.bwd_read(base, left, lnb)
                 ll = lbase + llb
                 if left < 0:
                     return fail
@@ -413,6 +478,8 @@ def _decode_chunk(row: bytes, csize: int, out_cap: int,
                     r0, r1, r2 = off, r0, r1
                 if off <= 0 or lit_pos + ll > regen:
                     return fail
+                if trace is not None:
+                    trace["offs"].append(off)
                 emit(lit[lit_pos:lit_pos + ll], ll)
                 lit_pos, op = lit_pos + ll, op + ll
                 if off > op:
@@ -423,7 +490,7 @@ def _decode_chunk(row: bytes, csize: int, out_cap: int,
                 op += ml
                 if i + 1 < nseq:                       # state updates: ll, ml, of
                     lnb2, mnb2, onb2 = (ll_e >> 8) & 0xFF, (ml_e >> 8) & 0xFF, (of_e >> 8) & 0xFF
-                    v, left = bwd_read(base, left, lnb2 + mnb2 + onb2)
+                    v, left = R.bwd_read(base, left, lnb2 + mnb2 + onb2)
                     ll_s = ((ll_e >> 16) & 0xFFFF) + (v >> (mnb2 + onb2))
                     ml_s = ((ml_e >> 16) & 0xFFFF) + ((v >> onb2) & ((1 << mnb2) - 1))
                     of_s = ((of_e >> 16) & 0xFFFF) + (v & ((1 << onb2) - 1))
@@ -469,45 +536,27 @@ def decompress_batch_big_plain(comp: torch.Tensor, comp_sizes: torch.Tensor, out
     return _plain(comp, comp_sizes, out_cap, lit_cap_of(out_cap, big=True))
 
 
-def _launch(comp: torch.Tensor, comp_sizes: torch.Tensor, out_cap: int, lit_cap: int):
+def _passes(comp: torch.Tensor, comp_sizes: torch.Tensor, out_cap: int, lit_cap: int):
     if comp.device.type != "cuda":
-        raise ValueError(f"the Zstandard decode kernel needs CUDA tensors, got {comp.device}")
-    if comp.dtype != torch.uint8 or comp.dim() != 2:
-        raise ValueError(f"comp must be uint8[B, cap], got {comp.dtype}{list(comp.shape)}")
-    B, comp_cap = comp.shape
-    if comp_sizes.shape != (B,):
-        raise ValueError(f"comp_sizes must be int32[{B}]")
-    comp = comp.contiguous()
-    comp_sizes = comp_sizes.to(device=comp.device, dtype=torch.int32).contiguous()
-    out = torch.empty((B, out_cap), dtype=torch.uint8, device=comp.device)
-    osz = torch.empty((B,), dtype=torch.int32, device=comp.device)
-    stat = torch.empty((B,), dtype=torch.int32, device=comp.device)
-    lits = torch.empty((B, lit_cap), dtype=torch.uint8, device=comp.device)
-    fn = _build.load("zstd_decode").tpucomp_zstd_decode
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, i, i, p, i, p, i, p, p, p]
-    fn.restype = i
-    with torch.cuda.device(comp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(comp.data_ptr(), comp_sizes.data_ptr(), B, comp_cap, out.data_ptr(), out_cap,
-                lits.data_ptr(), lit_cap, osz.data_ptr(), stat.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"zstd_decode kernel launch failed: cudaError {rc}")
-    return out, osz, stat
+        raise ValueError(f"the Zstandard decode kernels need CUDA tensors, got {comp.device}")
+    from tpucomp_torch.ops.cuda import zstd_passes
+    return zstd_passes.run(comp, comp_sizes, out_cap, lit_cap)
 
 
 def decompress_batch(comp: torch.Tensor, comp_sizes: torch.Tensor, out_cap: int):
-    """Row 18: launch ``csrc/zstd_decode.cu`` with the chunk-resident
-    wrapper's ``lit_cap`` on ``comp``'s card, on the current stream.  Raises
+    """Row 18: the chunk-resident wrapper's ``lit_cap`` through the
+    block-parallel passes of :mod:`tpucomp_torch.ops.cuda.zstd_passes` on
+    ``comp``'s card, on the current stream.  It reads the scratch sizes to
+    the host once, so the call waits for the work queued before it.  Raises
     for tensors that are not on a CUDA device."""
-    r = _launch(comp, comp_sizes, out_cap, lit_cap_of(out_cap, big=False))
+    r = _passes(comp, comp_sizes, out_cap, lit_cap_of(out_cap, big=False))
     decompress_batch.launches += 1
     return r
 
 
 def decompress_batch_big(comp: torch.Tensor, comp_sizes: torch.Tensor, out_cap: int):
-    """Row 19: the same kernel with the 16 MiB regime's ``lit_cap`` (128 KiB)."""
-    r = _launch(comp, comp_sizes, out_cap, lit_cap_of(out_cap, big=True))
+    """Row 19: the same passes with the 16 MiB regime's ``lit_cap`` (128 KiB)."""
+    r = _passes(comp, comp_sizes, out_cap, lit_cap_of(out_cap, big=True))
     decompress_batch_big.launches += 1
     return r
 
