@@ -15,7 +15,8 @@ exit code and no result line:
 1. device: name, count, and ``nvidia-smi``'s name and power limit;
 2. build: the seventeen CUDA libraries from ``tpucomp_torch/ops/cuda/csrc`` (one
    ``nvcc`` each, in parallel), with their ``-Xptxas -v`` register/shared-memory
-   lines;
+   lines, and the Deflate decoder's registers, shared memory, spills and CTAs
+   an SM from the runtime;
 3. kernel vs plain: each of the forty-four kernels on the card against its plain
    version on a host copy of the same inputs (<= 8 chunks per corpus at the
    main path's 64 KiB shape, edge and hand-made streams, truncated and
@@ -26,7 +27,11 @@ exit code and no result line:
    serial GDeflate decoder, on rows 13-14's tiles and two corrupt tiles of
    tests/test_torch_variants.py at out_cap 64 KiB and 256; for Deflate, zlib
    levels 0/1/6/9, libdeflate, a multi-block stream, gzip members through
-   the decoder's ``starts``, and the encoder's three modes, with
+   the decoder's ``starts``, the window stress streams of
+   tests/deflate_stress.py (matches 32,768 back, a 65,535-byte stored
+   block, multi-block streams also as gzip members, literal-only, every
+   period below 32, cut and flipped copies) at out_cap 65535, 65536, 69635
+   and 1000, and the encoder's three modes, with
    ``dyn_tables`` on the card against the CPU; for Zstandard decode, both
    wrappers (the two literal capacities) against the frame walk on libzstd
    frames at levels 1/3/19, edge, hand-made and corrupt frames, and the
@@ -309,6 +314,7 @@ def main() -> int:
     from tpucomp_torch.utils import synth
     sys.path.insert(0, str(HERE / "tests"))
     import gdeflate_pyref as pyref    # the format's serial Python codec (no JAX)
+    import deflate_stress as dstress  # Deflate streams that stress the decoder's window
 
     counters = {"lz4_decode": (lz4_decode2.decompress_batch,),
                 "lz4_encode": (lz4_encode2.emit_kernel,),
@@ -368,6 +374,10 @@ def main() -> int:
         print(f"[build] {name}: {secs[name]:.1f} s")
         for line in _build.ptxas_report(name):
             print(f"[build]   {line}")
+    info = deflate_decode.kernel_info()
+    print(f"[build] deflate_decode kernel: {info['registers']} registers, "
+          f"{info['shared_bytes']} B static shared memory, {info['local_bytes']} B local "
+          f"(spills) a thread, {info['ctas_per_sm']} CTAs an SM")
 
     lap("1-2 device, imports, build")
 
@@ -556,6 +566,24 @@ def main() -> int:
         compare("deflate_decode", deflate_decode.decompress_batch,
                 deflate_decode.decompress_batch_plain, (dec_in.data, dec_in.sizes, cap),
                 f"{len(dstreams)} streams, {label}")
+    # the window's stress inputs (tests/deflate_stress.py) and their cut and
+    # flipped copies, at out_cap one byte short of 64 KiB, 64 KiB, above it
+    # (not a multiple of 16) and 1000; then as gzip members at their starts
+    wstreams = [s for _, s, _ in dstress.window_streams()]
+    win_in = ChunkBatch.from_chunks(wstreams + dstress.corrupt(wstreams), device="cpu")
+    for cap in (CHUNK - 1, CHUNK, dstress.OUT_CAP_ABOVE, 1000):
+        compare("deflate_decode", deflate_decode.decompress_batch,
+                deflate_decode.decompress_batch_plain, (win_in.data, win_in.sizes, cap),
+                f"{win_in.num_chunks} window stress streams, out_cap {cap}")
+    members = dstress.window_members()
+    wgz_in = ChunkBatch.from_chunks(members + dstress.corrupt(members[:3]), device="cpu")
+    w_off, w_end, _, _, w_ok = fgzip.parse_member(wgz_in.data, wgz_in.sizes)
+    for cap in (CHUNK, 1000):
+        compare("deflate_decode",
+                lambda c, e, oc, st: deflate_decode.decompress_batch(c, e, oc, starts=st),
+                lambda c, e, oc, st: deflate_decode.decompress_batch_plain(c, e, oc, starts=st),
+                (wgz_in.data, w_end, cap, torch.where(w_ok, w_off, 0)),
+                f"{wgz_in.num_chunks} window stress gzip members at their starts, out_cap {cap}")
     gz = [interop.gzip_compress(c) for c in head["mixed"][:4] + [b"", b"gzip " * 999]]
     gz += [gz[0][:-6] + bytes([gz[0][-6] ^ 0xFF]) + gz[0][-5:], gz[1][:20]]
     gz_in = ChunkBatch.from_chunks(gz, gcap, device="cpu")

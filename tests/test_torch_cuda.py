@@ -38,6 +38,8 @@ from tpucomp_torch.ops.cuda import (_probe, ans_decode, ans_encode, cascaded_exp
                                     zstd_encode)
 from tpucomp_torch.utils import synth
 
+import deflate_stress as ds
+
 pytestmark = pytest.mark.cuda
 
 
@@ -215,6 +217,9 @@ def _deflate_streams(cap: int):
         b = bytearray(good)
         b[rng.integers(0, len(good))] ^= 1 << rng.integers(0, 8)
         comp.append(bytes(b))
+    if cap == 65536:   # the window's stress inputs and their cut and flipped copies
+        window = [s for _, s, _ in ds.window_streams()]
+        comp += window + ds.corrupt(window)
     return comp + [b"\x07" * 40, b"\x05\x00", b"\x01\x05\x00\x00\x00hi",
                    b"\x01\xff\xff\x00\x00", bytes(rng.integers(0, 256, 96, dtype=np.uint8))]
 
@@ -230,6 +235,27 @@ def test_deflate_decode_kernel_equals_plain(card, cap, out_cap):
     torch.cuda.synchronize()
     assert deflate_decode.decompress_batch.launches == before + 1
     assert _equal(got, deflate_decode.decompress_batch_plain(cb.data, cb.sizes, oc))
+
+
+@pytest.mark.parametrize("out_cap", [65535, 65536, ds.OUT_CAP_ABOVE])
+def test_deflate_decode_window_kernel_equals_plain(card, out_cap):
+    window = [s for _, s, _ in ds.window_streams()]
+    cb = ChunkBatch.from_chunks(window + ds.corrupt(window), device="cpu")
+    got = deflate_decode.decompress_batch(cb.data.to(card), cb.sizes.to(card), out_cap)
+    torch.cuda.synchronize()
+    assert _equal(got, deflate_decode.decompress_batch_plain(cb.data, cb.sizes, out_cap))
+
+
+@pytest.mark.parametrize("out_cap", [65536, 1000])
+def test_deflate_decode_gzip_members_kernel_equals_plain(card, out_cap):
+    members = ds.window_members()
+    cb = ChunkBatch.from_chunks(members + ds.corrupt(members[:3]), device="cpu")
+    off, end, _, _, ok = fgzip.parse_member(cb.data, cb.sizes)
+    starts = torch.where(ok, off, 0)
+    got = deflate_decode.decompress_batch(cb.data.to(card), end.to(card), out_cap,
+                                          starts=starts.to(card))
+    torch.cuda.synchronize()
+    assert _equal(got, deflate_decode.decompress_batch_plain(cb.data, end, out_cap, starts))
 
 
 @pytest.mark.parametrize("out_cap", ["bound", 1024])

@@ -12,9 +12,10 @@ sits its plain version with the same signature.
 - :mod:`.snappy_decode` — Snappy block decode (``csrc/snappy_decode.cu``).
 - :mod:`.snappy_encode2` — Snappy emitter over :func:`tpucomp_torch.ops.match
   .candidates2` (``csrc/snappy_encode.cu``).
-- :mod:`.deflate_decode` — raw Deflate decode (``csrc/deflate_decode.cu``,
-  with the canonical Huffman tables of ``csrc/huffman.cuh`` and their plain
-  version :mod:`.huffman`); gzip runs it at each member's body.
+- :mod:`.deflate_decode` — raw Deflate decode (``csrc/deflate_decode.cu``:
+  a decoding warp and a copying warp a chunk over a shared-memory window;
+  its plain version walks the blocks with the table builder of
+  :mod:`.huffman`); gzip runs it at each member's body.
 - :mod:`.deflate_encode` — the Deflate walk over :func:`tpucomp_torch.ops
   .match.candidates2` in modes fixed, hist and emit
   (``csrc/deflate_encode.cu``), with the dynamic tables in torch ops.

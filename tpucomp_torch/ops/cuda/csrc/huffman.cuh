@@ -2,7 +2,10 @@
 //
 // Replaces tpucomp/ops/pallas/huffman.py (make_table_builder,
 // make_code_reader), the helpers of the TPU kernels deflate_decode.py::_kernel
-// and the GDeflate decoders; it has no pallas_call of its own.  The plain
+// and the GDeflate decoders; it has no pallas_call of its own.  The serial
+// GDeflate decoder (csrc/gdeflate_decode.cu) includes it; the Deflate decoder
+// (csrc/deflate_decode.cu) builds the same tables with a warp, keeping this
+// loop for the codes longer than the root.  The plain
 // version is tpucomp_torch/ops/cuda/huffman.py, step for step the same.
 //
 // build_table fills a two-level table for the code lengths lens[base, base +

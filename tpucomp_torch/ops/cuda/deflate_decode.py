@@ -1,8 +1,10 @@
 """Batched raw Deflate (RFC 1951) decode: the Hopper kernel and its plain version.
 
 Port of :mod:`tpucomp.ops.pallas.deflate_decode` (``decompress_batch`` /
-``_kernel``).  The kernel is ``csrc/deflate_decode.cu`` (one warp per chunk;
-its header says what it replaces, what bounds it and how it is built).  The
+``_kernel``).  The kernel is ``csrc/deflate_decode.cu`` (one CTA of two warps
+per chunk: one warp decodes the symbols into a 34 KiB output window in shared
+memory, the other copies the matches and flushes the window to the row; its
+header says what it replaces, what bounds it and how it is built).  The
 plain version walks each chunk's blocks and symbols in Python with the same
 semantics, statuses included, through the table builder of :mod:`.huffman`;
 the CPU tests hold it against the reference and ``chip_smoke.py`` holds the
@@ -215,3 +217,17 @@ def decompress_batch(comp: torch.Tensor, comp_sizes: torch.Tensor, out_cap: int,
 
 
 decompress_batch.launches = 0
+
+
+def kernel_info() -> dict[str, int]:
+    """The kernel's resources on the current card: CTAs an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), static shared memory
+    bytes, registers and local (spill) bytes a thread."""
+    fn = _build.load("deflate_decode").tpucomp_deflate_decode_info
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 4)()
+    rc = fn(info)
+    if rc != 0:
+        raise RuntimeError(f"deflate_decode kernel query failed: cudaError {rc}")
+    return dict(zip(("ctas_per_sm", "shared_bytes", "registers", "local_bytes"), info))

@@ -1,9 +1,11 @@
 """Canonical Huffman decode tables: the plain version of ``csrc/huffman.cuh``.
 
 Port of :mod:`tpucomp.ops.pallas.huffman` (``make_table_builder``,
-``make_code_reader``; no ``pallas_call`` of its own).  The Deflate decoder's
-kernel (``csrc/deflate_decode.cu``) includes the CUDA version; the plain
-decoder (:mod:`.deflate_decode`) calls the two functions here.  Both follow
+``make_code_reader``; no ``pallas_call`` of its own).  The serial GDeflate
+decoder's kernel (``csrc/gdeflate_decode.cu``) includes the CUDA version, and
+the Deflate decoder's kernel (``csrc/deflate_decode.cu``) builds the same
+tables with a warp; the plain Deflate decoder (:mod:`.deflate_decode`) calls
+the two functions here.  Both follow
 the reference step for step, because statuses on corrupt input depend on it:
 
 * the table is the classic inflate two-level table, filled incrementally in
