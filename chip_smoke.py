@@ -50,7 +50,11 @@ exit code and no result line:
    row with distances above 49152, at out_cap = bound and 4096, with
    ``dyn_tables_gd``, ``schedule_and_assemble`` and ``tile_tables`` on the
    card against the CPU (each plain walk runs once; its lanes are assembled
-   at both out_caps), then the parse and the replay on those tiles,
+   at both out_caps), the fixed and emit walks also on the chunks of
+   tests/gdeflate_walk_stress.py (thinned candidates for back extensions,
+   the 258 cap, matches ending around mflimit, sizes 0-8, 65535 and 65536,
+   a 64 KiB run, a table of 15-bit codes that overflows a lane), then the
+   parse and the replay on those tiles,
    truncated, bit-flipped and future-version tiles and the three tiles of
    tests/golden/gdeflate.bin, at a 64 KiB and a too-small out_cap; for ANS,
    both encode walks (words, emits, final states, word counts) and frames on
@@ -78,7 +82,8 @@ exit code and no result line:
    ``batched.compress("zstd")`` (rows 20-21, exact entropy) with its speed
    rung (``exact_entropy=False``), ``batched.compress`` /
    ``batched.decompress("gdeflate")`` in algos 0, 1, 2 (rows 13-14, 16-17;
-   tests/gdeflate_pyref.py reads three tiles of each), ``batched.compress`` /
+   tests/gdeflate_pyref.py reads three tiles of each; row 17's fixed and
+   emit ms a corpus on a line of their own), ``batched.compress`` /
    ``batched.decompress("ans")`` (rows 25, 23) with rows 24 and 22 through
    their own wrappers on the same chunks, ``batched.compress`` /
    ``batched.decompress("cascaded")`` (row 26) on three configurations of
@@ -98,7 +103,8 @@ exit code and no result line:
    frames into 64-byte rows through row 19's wrapper, where the frame walk
    gives every frame ``ERROR_OUTPUT_BUFFER_TOO_SMALL``;
    the probes path, counted on its own: ``_probe.main()`` and ``main2()``,
-   then each probe timed beside the one PyTorch call of the same function;
+   then each probe timed beside the one PyTorch call of the same function,
+   and the time of each split into host and device (``torch.profiler``);
    the Zstandard 16 MiB compress path, counted on its own: each corpus as 4
    chunks of 16 MiB through ``batched.compress("zstd")`` (the multi-block
    encoder) and back through ``batched.decompress`` (row 19), libzstd
@@ -142,6 +148,7 @@ ZSTD_TIGHT = 64           # an out_cap no 64 KiB frame fits: the settle path's w
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 WARMUP, ITERS = 2, 10
 GD_ITERS = 3              # timing iterations of the GDeflate encode stages
+PROBE_ITERS = 200         # timing iterations of a probe and its library call
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "lz4_decode": ("lz4_decode.cu", "tpucomp/ops/pallas/lz4_decode2.py:34"),
     "lz4_encode": ("lz4_encode.cu", "tpucomp/ops/pallas/lz4_encode2.py:50"),
@@ -226,6 +233,28 @@ def time_ms(torch, fn, iters=ITERS, warmup=WARMUP) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_device_ms(torch, fn, n: int = PROBE_ITERS) -> dict:
+    """Where a call's time goes: ``host_ms``, the host clock of ``n`` calls
+    back to back before the card finishes them, over ``n``; ``device_ms``,
+    the card time of the kernels (and copies) ``torch.profiler`` sees in
+    ``n`` more calls, over ``n``; ``launches``, those kernels a call."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = (time.perf_counter() - t) / n * 1e3
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"host_ms": host,
+            "device_ms": sum(e.time_range.elapsed_us() for e in dev_events) / n / 1e3,
+            "launches": len(dev_events) / n}
 
 
 def bytes_bound_ms(read: int, written: int) -> float:
@@ -315,6 +344,7 @@ def main() -> int:
     sys.path.insert(0, str(HERE / "tests"))
     import gdeflate_pyref as pyref    # the format's serial Python codec (no JAX)
     import deflate_stress as dstress  # Deflate streams that stress the decoder's window
+    import gdeflate_walk_stress as gws  # chunks that stress the GDeflate token parse
 
     counters = {"lz4_decode": (lz4_decode2.decompress_batch,),
                 "lz4_encode": (lz4_encode2.emit_kernel,),
@@ -845,6 +875,35 @@ def main() -> int:
                         a_cpu + (gtab[0],), f"{g_in.num_chunks} chunks, mode emit, {how}")
         glanes[2 if eo else 1] = (lanes, (torch.where(gtab[3], 2, 1).to(torch.int32),
                                           gtab[1], gtab[2]))
+    # row 17 on tests/gdeflate_walk_stress.py's chunks: back extensions to
+    # position 0 and to the anchor (thinned candidates), cand8 winning, the
+    # 258 cap with and without back extension, matches ending around
+    # mflimit, sizes 0-8, 65535 and 65536, a 64 KiB run, and with a table of
+    # 15-bit codes a random 64 KiB row's lanes past 832 words
+    ws_cb, ws_names = gws.batch()
+    ws_cands = gws.candidates(ws_cb, ws_names)
+    ws_args = (ws_cb.data, ws_cb.sizes, *ws_cands)
+    ws_label = f"{ws_cb.num_chunks} walk stress chunks"
+    compare("gdeflate_encode",
+            lambda d, s, a, b, n: gdeflate_encode.fixed_kernel(d, s, (a, b, n)),
+            lambda d, s, a, b, n: gdeflate_encode.fixed_plain(d, s, (a, b, n)),
+            ws_args, f"{ws_label}, mode fixed")
+    for how, wc, wtab in (
+            ("matches", ws_cands, None), ("entropy only", None, None),
+            ("15-bit codes", ws_cands, gws.long_code_table(ws_cb.num_chunks))):
+        if wtab is None:
+            wtab = gdeflate_encode.dyn_tables_gd(
+                *gdeflate_encode.hist_plain(ws_cb.data, ws_cb.sizes, wc))[0]
+        wa = (ws_cb.data, ws_cb.sizes) + (tuple(wc) if wc is not None else ()) + (wtab,)
+        want = compare("gdeflate_encode",
+                       lambda d, s, *r, wc=wc: gdeflate_encode.emit_kernel(
+                           d, s, None if wc is None else tuple(r[:-1]), r[-1]),
+                       lambda d, s, *r, wc=wc: gdeflate_encode.emit_plain(
+                           d, s, None if wc is None else tuple(r[:-1]), r[-1]),
+                       wa, f"{ws_label}, mode emit, {how}")
+        if how == "15-bit codes":
+            check(int(want[3][ws_names.index("random_64k"), 1]) == 1,
+                  "the walk stress row past 832 words a lane did not overflow")
     # each plain walk ran once above: the plain encode of an algo is its
     # lanes through schedule_and_assemble, here at both out_caps
     g_tiles = []
@@ -1316,12 +1375,19 @@ def main() -> int:
                "p8": lambda: x.to(torch.int32) * 2,
                "p9": lambda: torch.arange(128, device=dev) * 3}[pname]
         kname = f"probe_{pname}"
-        kernel_ms[kname] = time_ms(torch, lambda: _probe.PROBES[pname](*args))
-        library_ms[kname] = time_ms(torch, lib)
+        # host-bound calls of some 10-30 us: many calls, kernel and library in
+        # turns (kernel, library, library, kernel), each the mean of its two
+        pk = lambda: _probe.PROBES[pname](*args)  # noqa: E731
+        turns = [time_ms(torch, fn, PROBE_ITERS, PROBE_ITERS // 10) for fn in (pk, lib, lib, pk)]
+        kernel_ms[kname] = (turns[0] + turns[3]) / 2
+        library_ms[kname] = (turns[1] + turns[2]) / 2
         card_plain = time_ms(torch, lambda: _probe.PLAIN[pname](*args))
         in_bytes, out_bytes = probe_bytes(pname, x, sv)
         bound[kname] = bytes_bound_ms(in_bytes, out_bytes)
-        print(f"[probes] {json.dumps({'probe': pname, 'input': xk, 'scalar': v, 'kernel_ms': kernel_ms[kname], 'library_ms': library_ms[kname], 'plain_on_card_ms': card_plain, 'read_bytes': in_bytes, 'written_bytes': out_bytes, 'bound_ms': bound[kname], 'bound': 'launch (under 64 KiB moved)'})}")
+        split = {f"{who}_{k}": v2 for who, fn in (("kernel", lambda: _probe.PROBES[pname](*args)),
+                                                  ("library", lib))
+                 for k, v2 in host_device_ms(torch, fn).items()}
+        print(f"[probes] {json.dumps({'probe': pname, 'input': xk, 'scalar': v, 'kernel_ms': kernel_ms[kname], 'library_ms': library_ms[kname], 'plain_on_card_ms': card_plain, 'read_bytes': in_bytes, 'written_bytes': out_bytes, 'bound_ms': bound[kname], 'bound': 'launch (under 64 KiB moved)', **split})}")
     lap("4 timings, probes")
 
     # Zstandard compress at nvCOMP's largest chunk: each corpus as 4 chunks of
@@ -1646,6 +1712,7 @@ def main() -> int:
         row["speed_compress_GBps"] = raw_bytes / row["speed_compress_ms"] / 1e6
         print(f"[full] {json.dumps(row)}")
     lap("4 checks and timings, lz4 to zstd")
+    row17 = {}   # corpus -> row 17's ms: fixed (algo 0), emit (algos 1 and 2)
     for (name, algo), (comp, cst, dec, dst) in gresults.items():
         cb = batches[name]
         B, sizes, raw_bytes = cb.num_chunks, cb.sizes, int(cb.total_bytes)
@@ -1684,6 +1751,7 @@ def main() -> int:
             extra = gdeflate_encode.fixed_header(B, dev)
             row["fixed_kernel_ms"] = time_ms(
                 torch, lambda: gdeflate_encode.fixed_kernel(cb.data, sizes, cands), **gtimes)
+            row17.setdefault(name, {})["fixed_ms"] = row["fixed_kernel_ms"]
         else:
             llh, dh = gdeflate_encode.hist_kernel(cb.data, sizes, cands)
             tab, desc, hdr_b, use_dyn = gdeflate_encode.dyn_tables_gd(llh, dh)
@@ -1693,6 +1761,7 @@ def main() -> int:
                              **gtimes)
             t_emit = time_ms(torch, lambda: gdeflate_encode.emit_kernel(cb.data, sizes, cands,
                                                                         tab), **gtimes)
+            row17.setdefault(name, {})[f"emit_algo{algo}_ms"] = t_emit
             row.update(hist_kernel_ms=t_hist, emit_kernel_ms=t_emit,
                        dyn_tables_gd_ms=time_ms(
                            torch, lambda: gdeflate_encode.dyn_tables_gd(llh, dh), **gtimes),
@@ -1718,6 +1787,8 @@ def main() -> int:
         row["compress_GBps"] = raw_bytes / row["compress_ms"] / 1e6
         row["decompress_GBps"] = raw_bytes / row["decompress_ms"] / 1e6
         print(f"[full] {json.dumps(row)}")
+    print(f"[row17] GDeflate fixed and emit kernel ms a corpus of 1024 x 64 KiB "
+          f"(mean of {GD_ITERS} calls): {json.dumps(row17)}")
     print(f"[full] peak device memory of the main-path run: {peak} bytes")
     del results, staged, dresults, dstaged, zresults, zenc, gresults
 
@@ -1965,7 +2036,8 @@ def main() -> int:
           "the status-only frame walk on 1024 x 64 KiB frames marked by the chain for "
           "64-byte rows, launches from the settle path's own run), "
           "zstd_encode_hist/zstd_encode in exact entropy, gdeflate_* in algo 1: "
-          "gdeflate_encode is the emit mode, gdeflate_parse/exec read the port's algo-1 "
+          "gdeflate_encode is the emit mode (the parse; bound_ms leaves out its reads of "
+          "cand and cand8, 8 B a position), gdeflate_parse/exec read the port's algo-1 "
           "tiles; ans_encode/_wide are the walk alone, bound by the raw bytes read and the "
           "frames written, ans_decode/_wide read the port's frames); launches: the batched "
           "main-path run (gdeflate_encode: modes fixed and emit; ans_encode and ans_decode "
@@ -1982,7 +2054,8 @@ def main() -> int:
           "call computes LZ4, Snappy, Deflate, "
           "Zstandard, GDeflate, rANS or this two-pass RLE expansion; probe_p1-p11 (row 27): "
           "launches from the probes path (_probe.main/main2), ms and library_ms on the "
-          "reference's inputs, library_ms the one PyTorch call of the same function "
+          "reference's inputs (200 calls each, in turns kernel, library, library, kernel), "
+          "library_ms the one PyTorch call of the same function "
           "(x[0, idx], torch.roll, a slice add or copy_, x[0, :n].sum(), x.to(int32) * 2, "
           "arange(128) * 3), bound_ms their bytes (under 64 KiB each) over the memory rate: "
           "launch-bound")

@@ -39,6 +39,7 @@ from tpucomp_torch.ops.cuda import (_probe, ans_decode, ans_encode, cascaded_exp
 from tpucomp_torch.utils import synth
 
 import deflate_stress as ds
+import gdeflate_walk_stress as gws
 
 pytestmark = pytest.mark.cuda
 
@@ -554,6 +555,47 @@ def test_gdeflate_walk_kernels_equal_plain(card, algo):
         assert _equal((got.data, got.sizes, gst), (want.data, want.sizes, wst))
 
 
+@pytest.mark.parametrize("case", ["fixed", "emit", "entropy_only", "long_codes"])
+def test_gdeflate_parse_kernels_equal_plain_on_stress_rows(card, case):
+    """Row 17 on ``tests/gdeflate_walk_stress.py``: back extensions to
+    position 0 and to the anchor (thinned candidates), cand8 winning, the
+    258 cap with and without back extension, matches ending around
+    mflimit, sizes 0-8, 65535 and 65536, a 64 KiB run; ``long_codes``
+    pushes the random row's lanes past 832 words."""
+    cb, names = gws.batch()
+    d, s = cb.data.to(card), cb.sizes.to(card)
+    cands = None if case == "entropy_only" else gws.candidates(cb, names)
+    gc = None if cands is None else [c.to(card) for c in cands]
+    if case == "fixed":
+        got = gdeflate_encode.fixed_kernel(d, s, gc)
+        want = gdeflate_encode.fixed_plain(cb.data, cb.sizes, cands)
+    else:
+        tab = (gws.long_code_table(cb.num_chunks) if case == "long_codes"
+               else gdeflate_encode.dyn_tables_gd(
+                   *gdeflate_encode.hist_plain(cb.data, cb.sizes, cands))[0])
+        got = gdeflate_encode.emit_kernel(d, s, gc, tab.to(card))
+        want = gdeflate_encode.emit_plain(cb.data, cb.sizes, cands, tab)
+    assert _equal(got, want)
+    if case == "long_codes":
+        assert int(want[3][names.index("random_64k"), 1]) == 1
+
+
+@pytest.mark.parametrize("algo", [0, 1, 2])
+def test_gdeflate_chunk_past_64_kib_gets_its_own_status(card, algo):
+    """``batched.compress("gdeflate")`` on a 65544-byte chunk beside a small
+    one: the call goes on chunk by chunk (the parse kernel reads at most a
+    row's first 64 KiB), the big chunk gets ``ERROR_CHUNK_SIZE_TOO_LARGE``,
+    size 0 and a zero row, and the batch equals the plain path's."""
+    cb = ChunkBatch.from_chunks([synth.mixed_corpus(65544, seed=6).tobytes(),
+                                 synth.mixed_corpus(3000, seed=5).tobytes()], device="cpu")
+    opts = fgdeflate.GdeflateOpts(algo)
+    got, gst = batched.compress("gdeflate", ChunkBatch(cb.data.to(card), cb.sizes.to(card)), opts)
+    want, wst = batched.compress("gdeflate", cb, opts)
+    assert gst.tolist() == [Status.ERROR_CHUNK_SIZE_TOO_LARGE, Status.SUCCESS]
+    assert int(got.sizes[0]) == 0 and not bool(got.data[0].any())
+    assert _equal((got.data, got.sizes, gst), (want.data, want.sizes, wst))
+
+
 @pytest.mark.parametrize("out_cap", [65536, 1000])
 def test_gdeflate_decode_kernels_equal_plain(card, out_cap):
     """Rows 13-14: the parse (tables row, tokens, sp, err) and the replay,
@@ -856,3 +898,38 @@ def test_probe_kernel_equals_plain(card, name):
         torch.cuda.synchronize()
         assert _probe.PROBES[name].launches == before + 1
         assert torch.equal(got.cpu(), _probe.PLAIN[name](*args)), (name, xk, v)
+
+
+@pytest.mark.parametrize("name", list(_probe.PROBES))
+def test_probe_entry_writes_every_element(card, name):
+    """Row 27: each probe's C entry, called on an output buffer filled with
+    a poison value, writes every element: the probe's values, and
+    ``INT32_MIN`` where the probe leaves one unwritten."""
+    blocks = _probe.check_blocks()
+    shape = _probe._SPECS[name][1]
+    for n, xk, v in _probe.check_calls():
+        if n != name:
+            continue
+        args = [a.to(card) for a in _probe.check_args(xk, v, blocks)]
+        out = torch.full(shape, 0x5A5A5A5A, dtype=torch.int32, device=card)
+        ptrs = [a.data_ptr() for a in args][1 if name == "p9" else 0:]
+        rc = _probe._entry(name)(*ptrs, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert rc == 0
+        assert torch.equal(out.cpu(), _probe.PLAIN[name](*[a.cpu() for a in args])), (name, xk, v)
+
+
+def test_probe_call_is_one_launch(card):
+    """Row 27: a probe call launches its kernel and nothing else (no fill),
+    counted by ``torch.profiler``."""
+    blocks = _probe.check_blocks()
+    for name, (xk, scalars) in _probe.CHECK_CASES.items():
+        args = _probe.check_args(xk, None if scalars is None else scalars[0], blocks, card)
+        _probe.PROBES[name](*args)          # the library loads outside the window
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            _probe.PROBES[name](*args)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1 and f"{name}_kernel" in kernels[0], (name, kernels)

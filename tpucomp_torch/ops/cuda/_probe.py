@@ -21,6 +21,7 @@ interpret mode gives it, so whole outputs compare exactly.
 from __future__ import annotations
 
 import ctypes
+import functools
 import sys
 
 import torch
@@ -131,30 +132,43 @@ _SPECS = {
 }
 
 
+@functools.cache
+def _entry(name: str):
+    """``tpucomp_probe_<name>`` with its argument and result types, resolved
+    once a process."""
+    fn = getattr(_build.load("probe"), f"tpucomp_probe_{name}")
+    fn.argtypes = [ctypes.c_void_p] * (_N_POINTERS[name] + 1)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+# pointers each entry takes before the stream: x (not p9), the scalar (not p8), out
+_N_POINTERS = {name: 3 for name in _SPECS} | {"p8": 2, "p9": 2}
+
+
 def _launch(name: str, x: torch.Tensor, scalar: torch.Tensor | None) -> torch.Tensor:
-    """Check the inputs, allocate the output at the unwritten fill, launch
-    ``tpucomp_probe_<name>`` on the current stream."""
+    """Check the inputs, allocate the output (the kernel writes every element
+    of it, ``INT32_MIN`` where the probe leaves one unwritten) and launch
+    ``tpucomp_probe_<name>`` on the current stream: one launch a call."""
     (shape, dtype), out_shape = _SPECS[name]
-    dev = x.device
-    if x.dtype != dtype or tuple(x.shape) != shape:
+    if x.dtype != dtype or x.shape != shape:
         raise ValueError(f"{name}: x must be {dtype}{list(shape)}, got {x.dtype}{list(x.shape)}")
-    x = x.contiguous()
+    if not x.is_contiguous():
+        x = x.contiguous()
     if x.data_ptr() % 16:            # cp.async moves 16-byte pieces
         x = x.clone()
-    args = [x.data_ptr()]
+    index = x.get_device()
+    ptrs = () if name == "p9" else (x.data_ptr(),)   # p9 does not read x
     if scalar is not None:
-        if scalar.dtype != torch.int32 or scalar.numel() != 1 or scalar.device != dev:
-            raise ValueError(f"{name}: the scalar must be int32 (1,) on {dev}")
-        scalar = scalar.contiguous()
-        args.append(scalar.data_ptr())
-    if name == "p9":                 # x is unused
-        args = args[1:]
-    out = torch.full(out_shape, UNWRITTEN, dtype=torch.int32, device=dev)
-    fn = getattr(_build.load("probe"), f"tpucomp_probe_{name}")
-    fn.argtypes = [ctypes.c_void_p] * (len(args) + 2)
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        rc = fn(*args, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if scalar.dtype != torch.int32 or scalar.numel() != 1 or scalar.get_device() != index:
+            raise ValueError(f"{name}: the scalar must be int32 (1,) on {x.device}")
+        ptrs += (scalar.data_ptr(),)     # one element: contiguous whatever its strides
+    out = torch.empty(out_shape, dtype=torch.int32, device=x.device)
+    if index == torch.cuda.current_device():
+        rc = _entry(name)(*ptrs, out.data_ptr(), torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = _entry(name)(*ptrs, out.data_ptr(), torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"probe {name} kernel launch failed: cudaError {rc}")
     return out
@@ -162,7 +176,7 @@ def _launch(name: str, x: torch.Tensor, scalar: torch.Tensor | None) -> torch.Te
 
 def _wrapper(name: str, plain, has_scalar: bool = True):
     def run(x: torch.Tensor, *scalar: torch.Tensor) -> torch.Tensor:
-        if x.device.type != "cuda":
+        if not x.is_cuda:
             return plain(x, *scalar)
         out = _launch(name, x, scalar[0] if has_scalar else None)
         run.launches += 1

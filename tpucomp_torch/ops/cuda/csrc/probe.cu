@@ -18,8 +18,9 @@
 //
 // The places the TPU leaves undefined are settled as the reference's
 // interpret mode settles them: an output element the probe does not write
-// keeps the wrapper's fill (INT32_MIN, which the interpreter gives), p9's
-// scratch starts at that fill, and out-of-range scalars take JAX's dynamic
+// holds INT32_MIN, which the interpreter gives (each kernel writes it
+// there itself: p4's other rows, p5's lanes below `off`, p9's lanes from
+// `n` on, since p9's scratch starts at it), and out-of-range scalars take JAX's dynamic
 // indexing rules: a scalar index counts from the end when negative and is
 // clamped into the row (p1, p3, p10, p11: 600 reads lane 511, -1 lane 511);
 // a dynamic 2-row slice start likewise, clamped to [0, rows - 2] (p4, p7:
@@ -30,11 +31,15 @@
 //
 // Bound: launch.  Each probe moves at most 64 KiB (p10, p11 read one 16384-
 // int32 row) and does a few thousand operations; its time on the card is the
-// launch and one round trip to memory.
+// launch and one round trip to memory.  So a call is one launch and nothing
+// else: every kernel writes every element of its output (the wrapper
+// allocates it uninitialised), and the host side of an entry point is the
+// launch alone.
 //
 // p10's 64 KiB stage is above the 48 KB of static shared memory: it is
-// dynamic shared memory, raised with cudaFuncSetAttribute before the launch.
-// Every entry point returns the CUDA error code of its launch (0 on success).
+// dynamic shared memory, raised with cudaFuncSetAttribute once a device (at
+// the first launch there).  Every entry point returns the CUDA error code of
+// its launch (0 on success).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared (see
 // tpucomp_torch/ops/cuda/_build.py); plain C interface, bound with ctypes.
@@ -111,16 +116,18 @@ __global__ void p3_kernel(const int* __restrict__ x, const int* __restrict__ idx
 }
 
 // p4: rows [r, r + 2) of a (16, 128) block, plus one, stored at the same
-// rows; the other rows keep the wrapper's fill.
+// rows; the other rows are unwritten (INT32_MIN).
 __global__ void p4_kernel(const int* __restrict__ x, const int* __restrict__ r, int* out) {
-  const int i = jax_start(r[0], 2, 16) * 128 + threadIdx.x;   // 256 threads: 2 rows
-  out[i] = x[i] + 1;
+  const int lo = jax_start(r[0], 2, 16) * 128;
+  for (int i = threadIdx.x; i < 16 * 128; i += blockDim.x)   // 256 threads, 8 elements each
+    out[i] = i - lo >= 0 && i - lo < 256 ? x[i] + 1 : INT32_MIN_V;
 }
 
-// p5: row 0 stored where lane >= off (a front-masked store).
+// p5: row 0 stored where lane >= off (a front-masked store); lanes below
+// `off` are unwritten (INT32_MIN).
 __global__ void p5_kernel(const int* __restrict__ x, const int* __restrict__ off, int* out) {
   const int l = threadIdx.x;
-  if (l >= off[0]) out[l] = x[l];
+  out[l] = l >= off[0] ? x[l] : INT32_MIN_V;
 }
 
 // p6: the (1, 512) row staged into shared memory, then sum(x[0, :n]) in a
@@ -152,7 +159,7 @@ __global__ void p8_kernel(const uint8_t* __restrict__ x, int* out) {
 
 // p9: smem[i] = 3 * i for i < n by one scalar thread (writes past the row
 // clamp to its last lane), then the whole 128-lane scratch copied out; lanes
-// not written keep the scratch's fill.
+// not written keep the scratch's fill, INT32_MIN.
 __global__ void p9_kernel(const int* __restrict__ n, int* out) {
   __shared__ int smem[128];
   smem[threadIdx.x] = INT32_MIN_V;
@@ -234,9 +241,15 @@ int tpucomp_probe_p9(const void* n, void* out, void* stream) {
 
 int tpucomp_probe_p10(const void* x, const void* idx, void* out, void* stream) {
   constexpr int kBytes = 16384 * 4;
-  cudaError_t e = cudaFuncSetAttribute(p10_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       kBytes);
+  static unsigned long long raised = 0;   // devices whose limit is raised (one bit each)
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= 64 || !((raised >> dev) & 1)) {
+    e = cudaFuncSetAttribute(p10_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev < 64) raised |= 1ull << dev;
+  }
   p10_kernel<<<1, 256, kBytes, S(stream)>>>(I(x), I(idx), O(out));
   return done();
 }

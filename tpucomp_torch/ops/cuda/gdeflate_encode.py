@@ -1,13 +1,13 @@
-"""Batched GDeflate encode: sort-matched candidates, the lane-emitting Hopper
-walk, the refill schedule and the tile assembly.
+"""Batched GDeflate encode: sort-matched candidates, the Hopper token parse
+and walk, the refill schedule and the tile assembly.
 
 Port of :mod:`tpucomp.ops.pallas.gdeflate_encode` (``_kernel`` in its three
 modes, ``_prep``, ``_schedule_and_assemble``, ``_dyn_tables_gd``,
 ``compress_batch``, ``compress_batch_dyn``).
 :func:`tpucomp_torch.ops.match.candidates2` (64 KiB window) finds the match
-candidates; one kernel body, ``csrc/gdeflate_encode.cu`` (one warp per chunk;
-its header says what it replaces, what bounds it and how it is built), walks
-each chunk in one of three modes that see the same tokens:
+candidates; ``csrc/gdeflate_encode.cu`` (its header says what it replaces,
+what bounds it and how it is built) turns them into tokens in one of three
+modes that see the same tokens:
 
 * ``fixed`` — fixed-table codes (algo 0), :func:`fixed_kernel`;
 * ``hist`` — litlen/distance symbol counts, :func:`hist_kernel`;
@@ -20,19 +20,33 @@ buffer and record its four field bit counts.  :func:`schedule_and_assemble`
 counts, interleaves the lane words in it and assembles the tiles, with the
 stored fallback.  :func:`compress_batch` is algo 0; :func:`compress_batch_dyn`
 is algo 1 (hist, tables, emit) and, with ``entropy_only``, algo 2 (no
-matches).  The plain versions run the same walks in Python; the CPU tests
-hold them against the reference and ``chip_smoke.py`` holds the kernels
-against them.
+matches).
+
+``hist`` walks a chunk's tokens serially, one warp a chunk.  ``fixed`` and
+``emit`` parse a chunk in parallel, one CTA a chunk: the token that follows
+a scan position depends on that position alone, so every position's next
+token is computed at once (:func:`next_tokens_plain` is that pass's plain
+version), the chain of next tokens from 0 is found (32 chases from segment
+starts, joined by one lane) and its tokens numbered (:func:`path_plain`
+follows it from 0), and the tokens are coded and packed into the lanes at
+once (:func:`lanes_from_path_plain`; :func:`parse_lanes_plain` over a
+batch).  The plain versions of the whole modes (:func:`fixed_plain`,
+:func:`emit_plain`, :func:`hist_plain`) run the serial walk in Python; the
+CPU tests hold them against the reference and the parse pieces against the
+walk, and ``chip_smoke.py`` holds the kernels against them.
 
 Contract: ``data uint8[B, cap]`` plus ``sizes int32[B]`` (each in ``[0,
 cap]``; values outside are clamped) -> ``(out uint8[B, out_cap], out_sizes
 int32[B], statuses int32[B])``, tiles byte-identical to the reference's.  A
 tile longer than ``out_cap`` gives ``ERROR_OUTPUT_BUFFER_TOO_SMALL``, size 0
-and a zero row.
+and a zero row.  The ``fixed`` and ``emit`` kernels read at most a row's
+first 64 KiB (GDeflate's largest chunk; ``batched.compress`` gives a larger
+chunk ``ERROR_CHUNK_SIZE_TOO_LARGE``).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -44,8 +58,8 @@ from tpucomp_torch.formats.deflate import (CL_ORDER, FIXED_LIT_LENS, MAX_BITS, a
 from tpucomp_torch.formats.gdeflate import FIXED_GDIST_LENS, HDR, N_LANES, PAYLOAD
 from tpucomp_torch.ops import match
 from tpucomp_torch.ops.cuda import _build
-from tpucomp_torch.ops.cuda.deflate_encode import (_FIXED_LIT, _dist_sym, _len_sym, _rev,
-                                                   _rows, _walk)
+from tpucomp_torch.ops.cuda.deflate_encode import (_FIXED_LIT, MAX_MATCH, MIN_MATCH, _dist_sym,
+                                                   _len_sym, _rev, _rows, _walk)
 from tpucomp_torch.ops.cuda.lz4_encode2 import _clamped_sizes
 
 NT_CAP = 65536          # tokens a tile may have (all literals of 64 KiB)
@@ -187,6 +201,192 @@ def hist_plain(data, sizes, cands):
         dh.append(d)
     return (torch.tensor(llh, dtype=torch.int32, device=data.device).reshape(-1, 288),
             torch.tensor(dh, dtype=torch.int32, device=data.device).reshape(-1, 32))
+
+
+# --- the parse's pieces, plain ------------------------------------------------------------
+# The fixed and emit kernels do not walk: they compute every position's next
+# token at once, follow the chain of next tokens from 0, and code the tokens
+# at once.  These are those passes' plain versions, one chunk at a time.
+
+def _common_prefix(words: np.ndarray, a: np.ndarray, c: np.ndarray,
+                   cap_n: np.ndarray) -> np.ndarray:
+    """Per element, the common-prefix length of the bytes at ``a`` and at
+    ``c``, at most ``cap_n`` (<= 254), 8 bytes a step: ``words[x]`` holds
+    the 8 bytes at ``x`` (little-endian), far enough past the last byte
+    that ``a + cap_n`` and ``c + cap_n`` stay inside."""
+    n = np.zeros(a.shape, np.int64)
+    live = np.nonzero(cap_n > 0)[0]
+    for k in range(0, int(cap_n.max()) if cap_n.size else 0, 8):
+        if not live.size:
+            break
+        x = words[a[live] + k] ^ words[c[live] + k]
+        low = (x & (~x + np.uint64(1))).astype(np.float64)     # the lowest set bit
+        first = np.where(x != 0, np.log2(np.maximum(low, 1)).astype(np.int64) >> 3, 8)
+        n[live] = k + first
+        live = live[(x == 0) & (k + 8 < cap_n[live])]
+    return np.minimum(n, cap_n)
+
+
+def next_tokens_plain(row: torch.Tensor, size: int, cand: torch.Tensor,
+                      cand8: torch.Tensor) -> dict:
+    """The parse kernel's next-token pass, for one chunk (``row uint8[cap]``,
+    candidates2's ``cand`` and ``cand8`` rows).
+
+    A position ``p < mflimit`` has a candidate where ``cand`` or ``cand8`` is
+    set (where candidates2's ``nxt`` points).  There the walk's forward
+    extensions give ``length[p]`` (the longer, cand8 only if longer) from
+    ``src[p]``, and the back extension through the positions before ``p``
+    that have none gives ``start[p]`` (``A``).  A scan position ``s`` whose
+    first candidate at or after it is ``p`` starts its match at ``max(s,
+    A)`` and goes on to ``next[s] = min(p + 4 + length, max(s, A) + 258)``;
+    -1 where no candidate is left.  Returns those four int64 tensors over
+    ``[0, mflimit)`` and ``cand_at`` (``p``, -1 for none)."""
+    mflimit = max(size - MIN_MATCH + 1, 0)
+    i64 = torch.int64
+    padded = np.zeros(size + 16, np.uint8)
+    padded[:size] = row[:size].numpy()
+    words = np.lib.stride_tricks.sliding_window_view(padded, 8).copy().view("<u8")[:, 0]
+    row = torch.cat([row[:size].to(i64), torch.zeros(1, dtype=i64)])
+    pos = torch.arange(mflimit, dtype=i64)
+    c4, c8 = cand[:mflimit].to(i64), cand8[:mflimit].to(i64)
+    isc = (c4 >= 0) | (c8 >= 0)
+    p4 = torch.where(c4 >= 0, c4, c8)
+    p8 = torch.where(c8 >= 0, c8, p4)
+    fcap = torch.where(isc, (size - (pos + MIN_MATCH)).clamp(max=MAX_MATCH - MIN_MATCH), 0)
+    two = isc & (p8 != p4)
+    a = (pos + MIN_MATCH).numpy()
+    l4 = torch.from_numpy(_common_prefix(words, a, (p4 + MIN_MATCH).numpy(), fcap.numpy()))
+    l8 = torch.from_numpy(_common_prefix(words, a, (p8 + MIN_MATCH).numpy(),
+                                         torch.where(two, fcap, 0).numpy()))
+    length = torch.where(two, torch.maximum(l4, l8), l4)
+    src = torch.where(two & (l8 > l4), p8, p4)
+    bk = torch.zeros_like(pos)
+    live = isc.clone()
+    k = 0
+    while bool(live.any()):
+        x, y = pos - 1 - k, src - 1 - k
+        ok = live & (x >= 0) & (y >= 0)
+        xs, ys = x.clamp(min=0), y.clamp(min=0)
+        live = ok & (row[xs] == row[ys]) & ~isc[xs]
+        bk += live.to(i64)
+        k += 1
+    start = pos - bk
+    marked = torch.where(isc, pos, mflimit)
+    nxt = torch.flip(torch.cummin(torch.flip(marked, [0]), 0).values, [0]) if mflimit else marked
+    found = nxt < mflimit
+    p = torch.where(found, nxt, 0)
+    nexts = torch.minimum(p + MIN_MATCH + length[p], torch.maximum(pos, start[p]) + MAX_MATCH)
+    return {"next": torch.where(found, nexts, -1), "cand_at": torch.where(found, nxt, -1),
+            "start": start, "length": length, "src": src}
+
+
+def path_plain(tok: dict, size: int) -> tuple[list, list, int]:
+    """The chain of next tokens from position 0 and the token numbering, for
+    one chunk: ``(matches, numbers, tokens)``, ``matches`` the walk's
+    ``(anchor, start, length, distance)`` along the chain (as
+    ``deflate_encode._walk`` gives them), ``numbers[j]`` the token number of
+    match ``j`` (the literals and matches before it), ``tokens`` the chunk's
+    token count (with the trailing literals)."""
+    nxt = tok["next"].tolist()
+    mflimit = len(nxt)
+    matches, numbers = [], []
+    s, lits = 0, 0
+    while s < mflimit and nxt[s] >= 0:
+        p = int(tok["cand_at"][s])
+        start = max(s, int(tok["start"][p]))
+        ml = min(p - start + MIN_MATCH + int(tok["length"][p]), MAX_MATCH)
+        lits += start - s
+        numbers.append(lits + len(matches))
+        matches.append((s, start, ml, p - int(tok["src"][p])))
+        s = nxt[s]
+    end = matches[-1][1] + matches[-1][2] if matches else 0
+    return matches, numbers, lits + len(matches) + size - end
+
+
+def lanes_from_path_plain(row: bytes, size: int, matches: list, numbers: list, tokens: int,
+                          tab: list | None):
+    """The parse kernel's emission for one chunk: each token's codes (fixed
+    when ``tab`` is None) at its bit offset in lane ``t & 31``, the offsets
+    a prefix sum of each lane's token bit counts -> ``(lw [32, WCAP] uint32,
+    nb16 [NT_CAP] uint16, dcnt [32], meta [4])`` as :func:`fixed_plain` and
+    :func:`emit_plain` give them."""
+    kind = np.zeros(tokens, np.int64)          # byte value, or 256 + match index
+    t_of = np.asarray(numbers, np.int64)
+    kind[t_of] = 256 + np.arange(len(matches))
+    lit = np.ones(tokens, bool)
+    lit[t_of] = False
+    covered = np.zeros(size + 1, bool)
+    for _, start, ml, _ in matches:
+        covered[start:start + ml] = True
+    kind[lit] = np.frombuffer(row[:size], np.uint8)[~covered[:size]]
+    if tab is None:
+        lit_code = np.array([c for c, _ in _FIXED_LIT], np.int64)
+        lit_n = np.array([n for _, n in _FIXED_LIT], np.int64)
+    else:
+        lit_code = np.array([e & 0xFFFF for e in tab[:256]], np.int64)
+        lit_n = np.array([e >> 16 for e in tab[:256]], np.int64)
+    val = np.zeros(tokens, np.int64)
+    nbits = np.zeros(tokens, np.int64)
+    packed = np.zeros(tokens, np.int64)
+    v = kind[lit]
+    val[lit], nbits[lit], packed[lit] = lit_code[v], lit_n[v], lit_n[v]
+    for j, (_, _, ml, dist) in enumerate(matches):
+        li, e, ev = _len_sym(ml)
+        dc, de, dv = _dist_sym(dist)
+        if tab is None:
+            lsym = 257 + li
+            code, n1 = (lsym - 256, 7) if lsym < 280 else (0xC0 + lsym - 280, 8)
+            c1, c3, n3 = _rev(code, n1), _rev(dc, 5), 5
+        else:
+            c1, n1 = tab[257 + li] & 0xFFFF, tab[257 + li] >> 16
+            c3, n3 = tab[288 + dc] & 0xFFFF, tab[288 + dc] >> 16
+        t = numbers[j]
+        val[t] = c1 | (ev << n1) | (c3 << (n1 + e)) | (dv << (n1 + e + n3))
+        nbits[t] = n1 + e + n3 + de
+        packed[t] = n1 | (e << 4) | (n3 << 8) | (de << 12)
+    lane = np.arange(tokens) & (N_LANES - 1)
+    off = np.zeros(tokens, np.int64)
+    total = np.zeros(N_LANES, np.int64)
+    for j in range(N_LANES):
+        sel = lane == j
+        cs = np.cumsum(nbits[sel])
+        off[sel] = cs - nbits[sel]
+        total[j] = cs[-1] if cs.size else 0
+    words = np.zeros((N_LANES, WCAP + 3), np.uint64)
+    k0, sh = off >> 5, (off & 31).astype(np.uint64)
+    lo, hi = (val & 0xFFFFFFFF).astype(np.uint64), (val >> 32).astype(np.uint64)
+    m32 = np.uint64(0xFFFFFFFF)
+    parts = (((lo << sh) & m32), ((lo << sh) >> np.uint64(32)) | ((hi << sh) & m32),
+             (hi << sh) >> np.uint64(32))
+    dcnt = (total + 31) >> 5
+    for i, part in enumerate(parts):
+        k = k0 + i
+        keep = (k < WCAP) & (k < dcnt[lane])
+        np.bitwise_or.at(words, (lane[keep], k[keep]), part[keep])
+    nb16 = np.zeros(NT_CAP, np.uint16)
+    nb16[:min(tokens, NT_CAP)] = packed[:NT_CAP]
+    meta = [tokens, int((dcnt > WCAP).any() or tokens > NT_CAP), int(tokens > NT_CAP), 0]
+    return words[:, :WCAP].astype(np.uint32), nb16, dcnt.astype(np.int32), meta
+
+
+def parse_lanes_plain(data, sizes, paths, tab):
+    """:func:`lanes_from_path_plain` over a batch, from each row's
+    :func:`path_plain` result -> ``(lw, nb16, dcnt, meta)``, as
+    :func:`fixed_plain` (``tab`` None) or :func:`emit_plain` give them."""
+    rows, szs, _ = _rows(data, sizes, None)
+    tabs = tab.cpu().tolist() if tab is not None else None
+    B = len(szs)
+    lw = np.zeros((B, N_LANES, WCAP), np.uint32)
+    nb16 = np.zeros((B, NT_CAP), np.uint16)
+    dcnt = np.zeros((B, N_LANES), np.int32)
+    meta = np.zeros((B, 4), np.int32)
+    for i in range(B):
+        lw[i], nb16[i], dcnt[i], meta[i] = lanes_from_path_plain(
+            rows[i].tobytes(), szs[i], *paths[i], None if tabs is None else tabs[i])
+    dev = data.device
+    return (torch.from_numpy(lw.reshape(B, -1).view(np.int32)).to(dev),
+            torch.from_numpy(nb16.view(np.int32)).to(dev),
+            torch.from_numpy(dcnt).to(dev), torch.from_numpy(meta).to(dev))
 
 
 # --- the refill schedule and the tiles (torch ops) -------------------------------------
@@ -385,15 +585,22 @@ def _inputs(data, sizes, cands) -> list:
     return [data.contiguous(), _clamped_sizes(data, sizes).contiguous(), *cands, B, cap]
 
 
-def _call(mode: str, argtypes: list, args: list, device) -> None:
+@functools.cache
+def _entry(mode: str, n_more: int):
+    """``tpucomp_gdeflate_encode_<mode>`` with its argument and result types
+    (``n_more`` pointers after the common ones), resolved once a process."""
+    fn = getattr(_build.load("gdeflate_encode"), f"tpucomp_gdeflate_encode_{mode}")
+    fn.argtypes = [_P] * 5 + [_I, _I] + [_P] * n_more + [_P]
+    fn.restype = _I
+    return fn
+
+
+def _call(mode: str, n_more: int, args: list, device) -> None:
     """Launch mode ``mode``; ``args`` holds the tensors (passed as pointers,
     None as null) and keeps them alive through the launch."""
-    fn = getattr(_build.load("gdeflate_encode"), f"tpucomp_gdeflate_encode_{mode}")
-    fn.argtypes = [_P] * 5 + [_I, _I] + argtypes + [_P]
-    fn.restype = _I
     ptrs = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
     with torch.cuda.device(device):
-        rc = fn(*ptrs, torch.cuda.current_stream().cuda_stream)
+        rc = _entry(mode, n_more)(*ptrs, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gdeflate_encode ({mode}) kernel launch failed: cudaError {rc}")
 
@@ -407,13 +614,13 @@ def _lane_outputs(data):
 
 
 def fixed_kernel(data, sizes, cands):
-    """Launch the ``fixed`` walk of ``csrc/gdeflate_encode.cu`` (algo 0) over
+    """Launch the ``fixed`` parse of ``csrc/gdeflate_encode.cu`` (algo 0) over
     ``cands`` (``match.candidates2``'s three tensors) on ``data``'s card, on
     the current stream -> ``(lw int32[B, 32 * 832], nb16 int32[B, 32768],
     dcnt int32[B, 32], meta int32[B, 4])``."""
     args = _inputs(data, sizes, cands)
     outs = _lane_outputs(data)
-    _call("fixed", [_P] * 4, args + list(outs), data.device)
+    _call("fixed", 4, args + list(outs), data.device)
     fixed_kernel.launches += 1
     return outs
 
@@ -423,19 +630,19 @@ def hist_kernel(data, sizes, cands):
     args = _inputs(data, sizes, cands)
     llh = torch.empty((data.shape[0], 288), dtype=torch.int32, device=data.device)
     dh = torch.empty((data.shape[0], 32), dtype=torch.int32, device=data.device)
-    _call("hist", [_P, _P], args + [llh, dh], data.device)
+    _call("hist", 2, args + [llh, dh], data.device)
     hist_kernel.launches += 1
     return llh, dh
 
 
 def emit_kernel(data, sizes, cands, tab):
-    """Launch the ``emit`` walk against :func:`dyn_tables_gd`'s ``tab``."""
+    """Launch the ``emit`` parse against :func:`dyn_tables_gd`'s ``tab``."""
     args = _inputs(data, sizes, cands)
     B, dev = data.shape[0], data.device
     if tab.shape != (B, NTAB) or tab.dtype != torch.int32 or tab.device != dev:
         raise ValueError(f"tab must be int32[{B}, {NTAB}] on {dev}")
     outs = _lane_outputs(data)
-    _call("emit", [_P] * 5, args + [tab.contiguous()] + list(outs), dev)
+    _call("emit", 5, args + [tab.contiguous()] + list(outs), dev)
     emit_kernel.launches += 1
     return outs
 
