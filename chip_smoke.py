@@ -41,10 +41,15 @@ exit code and no result line:
    every frame is one block, its narrow one) against its plain pass on the
    plain passes' own intermediates (one plain run an input), and the 16 MiB
    wrapper also on each corpus's first 16 MiB at levels 1 and 19 and on the
-   port's own 16 MiB frame; the encoder's hist and full walks
+   port's own 16 MiB frame; the encoder's hist walk and full kernel
    on the head chunks, the edge inputs of tests/test_pallas_zstd.py and its
    64 KiB sequence-heavy chunk, in exact entropy at two out_caps and in the
-   speed rung, with its tables on the card against the CPU; for GDeflate,
+   speed rung, with its tables on the card against the CPU, and full (the
+   gated parse alone, and with the walk taking the chunks of few hist
+   steps) on the chunks of tests/zstd_walk_stress.py and mixed's 64 KiB
+   chunks 850 and 1000; Deflate's emit kernel also on
+   tests/gdeflate_walk_stress.py's chunks with 32 KiB candidates and those
+   two mixed chunks, algos 1 and 2, at two out_caps; for GDeflate,
    the hist and fixed/emit walks and the whole encode in algos 0/1/2 on the
    head chunks, the edge rows of tests/test_pallas_gdeflate.py and a 64 KiB
    row with distances above 49152, at out_cap = bound and 4096, with
@@ -345,6 +350,7 @@ def main() -> int:
     import gdeflate_pyref as pyref    # the format's serial Python codec (no JAX)
     import deflate_stress as dstress  # Deflate streams that stress the decoder's window
     import gdeflate_walk_stress as gws  # chunks that stress the GDeflate token parse
+    import zstd_walk_stress as zws      # chunks that stress the Zstandard gated parse
 
     counters = {"lz4_decode": (lz4_decode2.decompress_batch,),
                 "lz4_encode": (lz4_encode2.emit_kernel,),
@@ -777,6 +783,29 @@ def main() -> int:
                     lambda d, s, *r: deflate_encode.emit_plain(d, s, cands_of(r[:-4]), *r[-4:]),
                     a_cpu + tables + (cap,), f"{d_in.num_chunks} chunks, {how}, {label}")
 
+    # row 12 on tests/gdeflate_walk_stress.py's chunks with Deflate's 32 KiB
+    # candidates (back extensions to position 0 and to the anchor, cand8
+    # winning, the 258 cap, ends around mflimit, sizes 0-8, 65535, 65536, a
+    # 64 KiB run, a random 64 KiB row) and mixed's chunks 850 and 1000 (the
+    # literal-heavy fifth), with matches and entropy-only, at the bound and
+    # at an out_cap too small for most
+    mixed_tail = [(f"mixed_{k}", corpora["mixed"][k * CHUNK:(k + 1) * CHUNK]) for k in (850, 1000)]
+    dws_rows = gws.rows() + mixed_tail
+    dws = ChunkBatch.from_chunks([c for _, c in dws_rows], CHUNK, device="cpu")
+    dws_c = gws.candidates(dws, [n for n, _ in dws_rows], window=deflate_encode.WINDOW)
+    for eo in (False, True):
+        wt = deflate_encode.dyn_tables(*deflate_encode.hist_plain(dws.data, dws.sizes,
+                                                                  None if eo else dws_c))
+        wa = (dws.data, dws.sizes) + (() if eo else tuple(dws_c))
+        for cap in (dcap, 1024):
+            compare("deflate_encode_emit",
+                    lambda d, s, *r, eo=eo: deflate_encode.emit_kernel(
+                        d, s, None if eo else tuple(r[:-4]), *r[-4:]),
+                    lambda d, s, *r, eo=eo: deflate_encode.emit_plain(
+                        d, s, None if eo else tuple(r[:-4]), *r[-4:]),
+                    wa + wt + (cap,), f"{dws.num_chunks} walk stress chunks and mixed 850, "
+                    f"1000, {'entropy only' if eo else 'matches'}, out_cap {cap}")
+
     # Zstandard encode: the hist and full walks on the head chunks, the edge
     # inputs of tests/test_pallas_zstd.py:25-36,198-226 and its 64 KiB
     # sequence-heavy chunk, in exact entropy at out_cap = bound and 2048 and in
@@ -823,6 +852,37 @@ def main() -> int:
                     lambda d, s, a, b, n, *r: zstd_encode.full_plain(d, s, (a, b, n), *r),
                     zargs + (meta, tree, fse_tab, nc, cap),
                     f"{ze_in.num_chunks} chunks, {rung}, out_cap {cap}")
+
+    # row 21 on tests/zstd_walk_stress.py's chunks (repeat-only keeps, the
+    # initial offset 8, keeps through back extension alone, sequences
+    # without literals, a 65,532-byte match, ends around mflimit, sizes 0-8,
+    # 65535, 65536, a literal-only row) and mixed's chunks 850 and 1000, in
+    # both rungs and at a small out_cap: the gated parse on every chunk
+    # (steps None) and with the walk taking the chunks whose hist walk took
+    # at most WALK_BUDGET steps (steps from the hist kernel on the card)
+    zws_rows = zws.rows() + mixed_tail
+    zs = ChunkBatch.from_chunks([c for _, c in zws_rows], CHUNK, device="cpu")
+    zs_c = zws.candidates(zs, [n for n, _ in zws_rows])
+    zs_steps = torch.empty(zs.num_chunks, dtype=torch.int32, device=dev)
+    zstd_encode.hist_kernel(zs.data.to(dev), zs.sizes.to(dev), [c.to(dev) for c in zs_c],
+                            zs_steps)
+    zf, zsc = zstd_encode.hist_plain(zs.data, zs.sizes, zs_c)
+    zs_rungs = {"exact entropy": (zf, zstd_encode.seq_tables(zsc)),
+                "speed rung": (zstd_encode.whole_chunk_hist(zs.data, zs.sizes),
+                               zstd_encode.speed_tables(zs.num_chunks, "cpu"))}
+    walked = int((zs_steps <= zstd_encode.WALK_BUDGET).sum())
+    for rung, (freq, (fse_tab, nc)) in zs_rungs.items():
+        meta, tree = zstd_encode.huf_meta(freq)
+        for cap in ((zcap, 2048) if rung == "exact entropy" else (zcap,)):
+            for steps in (None, zs_steps):
+                how = "parse only" if steps is None else f"walk on {walked} chunks"
+                compare("zstd_encode",
+                        lambda d, s, a, b, n, *r, st=steps: zstd_encode.full_kernel(
+                            d, s, (a, b, n), *r, steps=st),
+                        lambda d, s, a, b, n, *r: zstd_encode.full_plain(d, s, (a, b, n), *r),
+                        (zs.data, zs.sizes, *zs_c, meta, tree, fse_tab, nc, cap),
+                        f"{zs.num_chunks} zstd walk stress chunks and mixed 850, 1000, {rung}, "
+                        f"out_cap {cap}, {how}")
 
     lap("3 lz4, snappy, deflate, zstd")
 
@@ -1512,6 +1572,7 @@ def main() -> int:
         return interop.libdeflate_decompress(f_r[0], len(f_r[1])) == f_r[1]
 
     win = deflate_encode.WINDOW
+    row12 = {}   # corpus -> row 12's ms: emit in algos 1 and 2
     for (name, algo), (comp, cst, dec, dst) in dresults.items():
         cb = batches[name]
         B, sizes = cb.num_chunks, cb.sizes
@@ -1551,6 +1612,7 @@ def main() -> int:
             t_hist = time_ms(torch, lambda: deflate_encode.hist_kernel(cb.data, sizes, cands))
             t_emit = time_ms(torch, lambda: deflate_encode.emit_kernel(cb.data, sizes, cands,
                                                                        *tables, dcap))
+            row12.setdefault(name, {})[f"emit_algo{algo}_ms"] = t_emit
             row.update(hist_kernel_ms=t_hist,
                        dyn_tables_ms=time_ms(torch, lambda: deflate_encode.dyn_tables(llh, dh)),
                        emit_kernel_ms=t_emit,
@@ -1662,6 +1724,8 @@ def main() -> int:
     def libzstd_reads(f_r) -> bool:
         return interop.zstd_decompress(f_r[0], len(f_r[1])) == f_r[1]
 
+    row21 = {}   # corpus -> row 21's ms, exact entropy (and the parse alone, the speed rung)
+
     for name, rungs in zenc.items():
         cb = batches[name]
         B, sizes, raw_bytes = cb.num_chunks, cb.sizes, int(cb.total_bytes)
@@ -1673,15 +1737,28 @@ def main() -> int:
             check(all(pool.map(libzstd_reads, zip(comp.chunk_list(), cb.chunk_list()))),
                   f"{name} zstd compress ({rung}): libzstd does not read the port's frames back")
         cands = match.candidates2(cb.data, sizes, window=zwin)
-        freq, sch = zstd_encode.hist_kernel(cb.data, sizes, cands)
+        steps = torch.empty(B, dtype=torch.int32, device=dev)
+        freq, sch = zstd_encode.hist_kernel(cb.data, sizes, cands, steps)
 
         def tables():
             return zstd_encode.seq_tables(sch) + zstd_encode.huf_meta(freq)
 
         fse_tab, nc, meta, tree = tables()
+        # row 21 as compress_batch calls it (the walk on the chunks whose hist
+        # walk took at most WALK_BUDGET steps), the parse alone, the speed rung
         t_full = time_ms(torch, lambda: zstd_encode.full_kernel(cb.data, sizes, cands, meta, tree,
-                                                                fse_tab, nc, zcap))
-        t_hist = time_ms(torch, lambda: zstd_encode.hist_kernel(cb.data, sizes, cands))
+                                                                fse_tab, nc, zcap, steps))
+        smeta, stree = zstd_encode.huf_meta(zstd_encode.whole_chunk_hist(cb.data, sizes))
+        sfse, snc = zstd_encode.speed_tables(B, dev)
+        row21[name] = {
+            "full_ms": t_full,
+            "parse_only_ms": time_ms(torch, lambda: zstd_encode.full_kernel(
+                cb.data, sizes, cands, meta, tree, fse_tab, nc, zcap)),
+            "speed_rung_ms": time_ms(torch, lambda: zstd_encode.full_kernel(
+                cb.data, sizes, cands, smeta, stree, sfse, snc, zcap)),
+            "walked_chunks": int((steps <= zstd_encode.WALK_BUDGET).sum()),
+            "steps_max": int(steps.max())}
+        t_hist = time_ms(torch, lambda: zstd_encode.hist_kernel(cb.data, sizes, cands, steps))
         nseq = int(sch[:, :36].sum())
         kernel_ms["zstd_encode_hist"] += t_hist
         kernel_ms["zstd_encode"] += t_full
@@ -1690,7 +1767,7 @@ def main() -> int:
         # bytes and, of fse_tab, the words at the sequences' states (3 a
         # sequence) and each chunk's 8 first-slot and meta words
         bound["zstd_encode"] += bytes_bound_ms(
-            raw_bytes + 4 * B + B * (258 * 4 + 176) + int(fse_tab[:, zstd_encode.O2_META + 4].sum())
+            raw_bytes + 8 * B + B * (258 * 4 + 176) + int(fse_tab[:, zstd_encode.O2_META + 4].sum())
             + 4 * (3 * nseq + 8 * B), B * zcap + 8 * B)
         comp = rungs["exact entropy"][0]
         row = {"corpus": name, "format": "zstd", "chunks": B, "raw_bytes": raw_bytes,
@@ -1711,6 +1788,11 @@ def main() -> int:
         row["compress_GBps"] = raw_bytes / row["compress_ms"] / 1e6
         row["speed_compress_GBps"] = raw_bytes / row["speed_compress_ms"] / 1e6
         print(f"[full] {json.dumps(row)}")
+    print(f"[row12] Deflate emit kernel ms a corpus of 1024 x 64 KiB (mean of {ITERS} calls): "
+          f"{json.dumps(row12)}")
+    print(f"[row21] Zstandard full kernel ms a corpus of 1024 x 64 KiB (mean of {ITERS} calls; "
+          f"the walk takes chunks of at most {zstd_encode.WALK_BUDGET} hist steps): "
+          f"{json.dumps(row21)}")
     lap("4 checks and timings, lz4 to zstd")
     row17 = {}   # corpus -> row 17's ms: fixed (algo 0), emit (algos 1 and 2)
     for (name, algo), (comp, cst, dec, dst) in gresults.items():

@@ -86,11 +86,13 @@ def _thin(cand: torch.Tensor, cand8: torch.Tensor, keep: torch.Tensor):
     return cand, cand8, nxt.to(torch.int32)
 
 
-def candidates(cb: ChunkBatch, names: list[str], seed: int = 13):
-    """candidates2's ``(cand, cand8, nxt)`` for the batch, thinned for the
-    rows named ``back_to_0`` (one candidate kept) and ``thin_*`` (one kept
-    in four, at random)."""
-    cand, cand8, nxt = (c.clone() for c in match.candidates2(cb.data, cb.sizes))
+def candidates(cb: ChunkBatch, names: list[str], seed: int = 13, window: int = 65535):
+    """candidates2's ``(cand, cand8, nxt)`` for the batch (over ``window``:
+    candidates2's default, as GDeflate's encoder calls it, or Deflate's 32
+    KiB), thinned for the rows named
+    ``back_to_0`` (one candidate kept) and ``thin_*`` (one kept in four, at
+    random)."""
+    cand, cand8, nxt = (c.clone() for c in match.candidates2(cb.data, cb.sizes, window=window))
     gen = torch.Generator().manual_seed(seed)
     for i, name in enumerate(names):
         if name == "back_to_0":

@@ -40,6 +40,7 @@ from tpucomp_torch.utils import synth
 
 import deflate_stress as ds
 import gdeflate_walk_stress as gws
+import zstd_walk_stress as zws
 
 pytestmark = pytest.mark.cuda
 
@@ -578,6 +579,57 @@ def test_gdeflate_parse_kernels_equal_plain_on_stress_rows(card, case):
     assert _equal(got, want)
     if case == "long_codes":
         assert int(want[3][names.index("random_64k"), 1]) == 1
+
+
+@pytest.mark.parametrize("out_cap", ["bound", 1024])
+@pytest.mark.parametrize("algo", [1, 2])
+def test_deflate_emit_parse_equals_plain_on_stress_rows(card, algo, out_cap):
+    """Row 12 (the emit kernel on the shared parse) on
+    ``tests/gdeflate_walk_stress.py``'s rows with Deflate's 32 KiB
+    candidates (thinned for back extensions; the 258 cap; ends around
+    mflimit; sizes 0-8, 65535, 65536; a 64 KiB run), with matches and
+    entropy-only, at the bound and at an out_cap too small."""
+    cb, names = gws.batch()
+    cands = None if algo == 2 else gws.candidates(cb, names, window=deflate_encode.WINDOW)
+    tables = deflate_encode.dyn_tables(*deflate_encode.hist_plain(cb.data, cb.sizes, cands))
+    cap = fdeflate.max_compressed_chunk_size(gws.CAP) if out_cap == "bound" else out_cap
+    got = deflate_encode.emit_kernel(cb.data.to(card), cb.sizes.to(card),
+                                     None if cands is None else [c.to(card) for c in cands],
+                                     *(t.to(card) for t in tables), cap)
+    want = deflate_encode.emit_plain(cb.data, cb.sizes, cands, *tables, cap)
+    assert _equal(got, want)
+
+
+@pytest.mark.parametrize("walk", ["parse only", "walk by steps"])
+@pytest.mark.parametrize("rung,out_cap", [("exact", "bound"), ("exact", 2048),
+                                          ("speed", "bound")])
+def test_zstd_full_parse_equals_plain_on_stress_rows(card, rung, out_cap, walk):
+    """Row 21 on ``tests/zstd_walk_stress.py``'s rows (repeat-only keeps,
+    the initial offset 8, keeps through back extension alone, sequences
+    without literals, a 65,532-byte match, sizes 0-8, 65535, 65536, a
+    literal-only row): the gated parse on every chunk (no step counts), and
+    with the walk taking the chunks whose hist walk took at most
+    ``WALK_BUDGET`` steps (the counts from the hist kernel on the card)."""
+    cb, names = zws.batch()
+    cands = zws.candidates(cb, names)
+    gc = [c.to(card) for c in cands]
+    if rung == "exact":
+        freq, sch = zstd_encode.hist_plain(cb.data, cb.sizes, cands)
+        fse_tab, nc = zstd_encode.seq_tables(sch)
+    else:
+        freq = zstd_encode.whole_chunk_hist(cb.data, cb.sizes)
+        fse_tab, nc = zstd_encode.speed_tables(cb.num_chunks, "cpu")
+    meta, tree = zstd_encode.huf_meta(freq)
+    cap = fzstd.max_compressed_chunk_size(zws.CAP) if out_cap == "bound" else out_cap
+    steps = None
+    if walk == "walk by steps":
+        steps = torch.empty(cb.num_chunks, dtype=torch.int32, device=card)
+        zstd_encode.hist_kernel(cb.data.to(card), cb.sizes.to(card), gc, steps)
+        assert 0 < int((steps <= zstd_encode.WALK_BUDGET).sum()) < cb.num_chunks
+    got = zstd_encode.full_kernel(cb.data.to(card), cb.sizes.to(card), gc, meta.to(card),
+                                  tree.to(card), fse_tab.to(card), nc.to(card), cap, steps)
+    want = zstd_encode.full_plain(cb.data, cb.sizes, cands, meta, tree, fse_tab, nc, cap)
+    assert _equal(got, want)
 
 
 @pytest.mark.parametrize("algo", [0, 1, 2])

@@ -16,23 +16,29 @@ sits its plain version with the same signature.
   a decoding warp and a copying warp a chunk over a shared-memory window;
   its plain version walks the blocks with the table builder of
   :mod:`.huffman`); gzip runs it at each member's body.
-- :mod:`.deflate_encode` — the Deflate walk over :func:`tpucomp_torch.ops
-  .match.candidates2` in modes fixed, hist and emit
-  (``csrc/deflate_encode.cu``), with the dynamic tables in torch ops.
+- :mod:`.deflate_encode` — Deflate over :func:`tpucomp_torch.ops
+  .match.candidates2`: the walk in modes fixed and hist, the parallel parse
+  of ``csrc/lz_parse.cuh`` for emit (``csrc/deflate_encode.cu``), with the
+  dynamic tables in torch ops.
 - :mod:`.zstd_decode` — the RFC 8878 frame decoder behind the reference's two
   wrappers, chosen by its dispatch gate: both run :mod:`.zstd_passes`, the
   block-parallel passes (``csrc/zstd_passes.cu``), with the frame walk
   (``csrc/zstd_decode.cu``) for frames that cannot fit their ``out_cap``.
-- :mod:`.zstd_encode` — the Zstandard walk over :func:`tpucomp_torch.ops
-  .match.candidates2` in modes hist and full (``csrc/zstd_encode.cu``), with
-  the FSE and Huffman tables in torch ops; chunks up to 64 KiB (wider ones
-  take the multi-block encoder of :mod:`tpucomp_torch.formats.zstd`).
+- :mod:`.zstd_encode` — Zstandard over :func:`tpucomp_torch.ops
+  .match.candidates2`: the walk in modes hist and full, and a gated parse
+  for full's chunks whose walk is long (``csrc/zstd_encode.cu``), with the
+  FSE and Huffman tables in torch ops; chunks up to 64 KiB (wider ones take
+  the multi-block encoder of :mod:`tpucomp_torch.formats.zstd`).
 - :mod:`.gdeflate_vdecode` — the GDeflate 32-lane tile parse and the token
   replay (``csrc/gdeflate_vdecode.cu``).
-- :mod:`.gdeflate_encode` — the GDeflate walk over :func:`tpucomp_torch.ops
-  .match.candidates2` in modes fixed, hist and emit, emitting into 32 lane
-  bit buffers (``csrc/gdeflate_encode.cu``), with the refill schedule, the
-  tile assembly and the dynamic tables in torch ops.
+- :mod:`.gdeflate_encode` — GDeflate over :func:`tpucomp_torch.ops
+  .match.candidates2`: the walk in mode hist, the parallel parse for fixed
+  and emit, emitting into 32 lane bit buffers (``csrc/gdeflate_encode.cu``),
+  with the refill schedule, the tile assembly and the dynamic tables in
+  torch ops.
+- :mod:`.lz_parse` — the plain versions of the parallel LZ77 token parse
+  that the Deflate and GDeflate kernels share (``csrc/lz_parse.cuh``, whose
+  pieces the Zstandard parse also uses).
 - :mod:`.ans_decode` — the rANS decode walk (``csrc/ans_decode.cu``), one
   kernel behind the reference's single-chunk and wide wrappers.
 - :mod:`.ans_encode` — the rANS encode walk (``csrc/ans_encode.cu``), likewise,

@@ -1,5 +1,6 @@
-// Batched raw Deflate encode: the token walk, one warp per chunk, in three
-// modes (fixed, hist, emit) of one kernel body.
+// Batched raw Deflate encode: the token walk, one warp per chunk, in the
+// modes fixed and hist of one kernel body, and emit as a parallel parse,
+// one CTA of 1024 threads a chunk.
 //
 // Replaces the TPU kernel tpucomp/ops/pallas/deflate_encode.py::_kernel in
 // its three trace-time modes: "fixed" (called by compress_batch at
@@ -25,9 +26,9 @@
 //    length and distance symbols from their bit lengths; EOB is 7 zero bits.
 //  * hist: counts of literal/length symbols (EOB once) and distance symbols
 //    into int32[B, 288] and int32[B, 30], zeroed first; no output bits.
-//  * emit: hdr_bits bits of hdr_words (LSB first) first, then every symbol
-//    from tab[sym] = bit-reversed code | length << 16 (distances at 288+),
-//    EOB from tab[256].
+//  * emit (the parse): hdr_bits bits of hdr_words (LSB first) first, then
+//    every symbol from tab[sym] = bit-reversed code | length << 16
+//    (distances at 288+), EOB from tab[256].
 // The stream is LSB first; a 64-bit accumulator writes 4 bytes whenever it
 // holds 32 bits and ceil(bits / 8) bytes at the end, the same bytes as the
 // TPU kernel's (lo, hi, nbits) triple.  A stream longer than stored blocks
@@ -44,19 +45,30 @@
 //
 // Bound: bytes.  A call must read each input byte once and write each output
 // byte once (B x out_cap, the zero tail included; hist writes B x 318
-// counts); it reads the candidate arrays only where the walk lands.  Design:
-// a warp per chunk, all lanes carrying the same walk state (broadcast loads,
-// uniform branches), lane 0 storing the stream's bytes; forward extension
-// compares 32 bytes a step with a ballot (warp_match_len); histograms and the
-// emit table live in the warp's shared memory (318 words); stored blocks are
-// copied by the whole warp.  The kernel writes every byte of the output row,
-// so the caller's buffer needs no clearing.
+// counts); the walk reads the candidate arrays only where it lands (the
+// parse reads cand and cand8 in full, which the bound does not count).
+// emit: csrc/lz_parse.cuh's parse of the chunk (its first 64 KiB, Deflate's
+// largest chunk: every position's next token at once, 32 merged chases of
+// next(), the tokens recomputed and numbered at once), then the stream from
+// the tokens' bit counts: one pass sums them (the header's bits first, the
+// end-of-block code last), so the stored rewrite and OUTPUT_BUFFER_TOO_SMALL
+// are decided before a bit is placed; a second codes the tokens in
+// super-rounds of 2048, a block scan of their bit counts places them, their
+// codes are or-ed into a ring of 4096 words in shared memory, and the
+// finished words go to the row.  Entropy-only coding has every byte a
+// literal token.  Design of the walk: a warp per chunk, all lanes carrying
+// the same walk state (broadcast loads, uniform branches), lane 0 storing
+// the stream's bytes; forward extension compares 32 bytes a step with a
+// ballot (warp_match_len); histograms live in the warp's shared memory (318
+// words); stored blocks are copied by the whole warp.  Both kernels write
+// every byte of the output row, so the caller's buffer needs no clearing.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 #include "bytecopy.cuh"
+#include "lz_parse.cuh"
 
 namespace {
 
@@ -68,7 +80,7 @@ constexpr int kWarpsPerBlock = 4;
 constexpr int kNTab = 288 + 30;
 constexpr int kHdrWords = 80;
 
-enum Mode { kFixed = 0, kHist = 1, kEmit = 2 };
+enum Mode { kFixed = 0, kHist = 1 };
 
 __device__ __forceinline__ uint32_t rev_bits(uint32_t v, int n) {
   return n ? __brev(v) >> (32 - n) : 0u;
@@ -128,13 +140,11 @@ struct BitOut {
 template <int M>
 struct Sink {
   BitOut bits;
-  int32_t* tab;  // hist: counts (288 litlen, then 30 dist); emit: the codes
+  int32_t* tab;  // hist: counts (288 litlen, then 30 dist)
   int lane;
   __device__ __forceinline__ void lit(int v) {
     if (M == kHist) {
       if (lane == 0) ++tab[v];
-    } else if (M == kEmit) {
-      bits.put(tab[v] & 0xFFFF, tab[v] >> 16);
     } else {
       bits.put(v < 144 ? rev_bits(0x30 + v, 8) : rev_bits(0x190 + v - 144, 9), v < 144 ? 8 : 9);
     }
@@ -150,18 +160,12 @@ struct Sink {
       }
       return;
     }
-    if (M == kEmit) {
-      bits.put(tab[257 + li] & 0xFFFF, tab[257 + li] >> 16);
-      bits.put(ev, e);
-      bits.put(tab[288 + di] & 0xFFFF, tab[288 + di] >> 16);
-    } else {
-      const int lsym = 257 + li;
-      const bool short_code = lsym < 280;
-      const int n = short_code ? 7 : 8;
-      bits.put(rev_bits(short_code ? lsym - 256 : 0xC0 + lsym - 280, n), n);
-      bits.put(ev, e);
-      bits.put(rev_bits(di, 5), 5);
-    }
+    const int lsym = 257 + li;
+    const bool short_code = lsym < 280;
+    const int n = short_code ? 7 : 8;
+    bits.put(rev_bits(short_code ? lsym - 256 : 0xC0 + lsym - 280, n), n);
+    bits.put(ev, e);
+    bits.put(rev_bits(di, 5), 5);
     bits.put(dv, de);
   }
   __device__ __forceinline__ void lits(const uint8_t* in, int a, int b) {
@@ -173,9 +177,7 @@ template <int M>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 deflate_encode_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__ sizes,
                       const int32_t* __restrict__ cand, const int32_t* __restrict__ cand8,
-                      const int32_t* __restrict__ nxt, int batch, int cap,
-                      const int32_t* __restrict__ tab, const int32_t* __restrict__ hdr_words,
-                      const int32_t* __restrict__ hdr_bits, int32_t* __restrict__ llh,
+                      const int32_t* __restrict__ nxt, int batch, int cap, int32_t* __restrict__ llh,
                       int32_t* __restrict__ dh, uint8_t* __restrict__ out, int out_cap,
                       int32_t* __restrict__ out_sizes, int32_t* __restrict__ statuses) {
   __shared__ int32_t s_tab[kWarpsPerBlock][kNTab];
@@ -187,24 +189,14 @@ deflate_encode_kernel(const uint8_t* __restrict__ data, const int32_t* __restric
   const uint8_t* in = data + row;
   const int size = min(max(sizes[chunk], 0), cap);
   int32_t* t = s_tab[wi];
-  for (int i = lane; i < kNTab; i += 32)
-    t[i] = M == kEmit ? tab[static_cast<size_t>(chunk) * kNTab + i] : 0;
+  for (int i = lane; i < kNTab; i += 32) t[i] = 0;
   __syncwarp();
 
   Sink<M> sink{{{M == kHist ? nullptr : out + static_cast<size_t>(chunk) * out_cap,
                  M == kHist ? 0 : out_cap, lane},
                 0, 0, 0},
                t, lane};
-  if (M == kFixed) {
-    sink.bits.put(0b011, 3);  // BFINAL = 1, BTYPE = 01
-  } else if (M == kEmit) {
-    const int hn = hdr_bits[chunk];
-    const int32_t* hw = hdr_words + static_cast<size_t>(chunk) * kHdrWords;
-    for (int i = 0; i < hn; i += 16) {
-      const int n = min(hn - i, 16);
-      sink.bits.put((static_cast<uint32_t>(hw[i >> 5]) >> (i & 31)) & ((1u << n) - 1u), n);
-    }
-  }
+  if (M == kFixed) sink.bits.put(0b011, 3);  // BFINAL = 1, BTYPE = 01
 
   const int mflimit = size - kMinMatch + 1;
   int anchor = 0, scan = 0;
@@ -248,10 +240,7 @@ deflate_encode_kernel(const uint8_t* __restrict__ data, const int32_t* __restric
     }
     return;
   }
-  if (M == kEmit)
-    sink.bits.put(t[256] & 0xFFFF, t[256] >> 16);
-  else
-    sink.bits.put(0, 7);  // EOB: symbol 256, code 0
+  sink.bits.put(0, 7);  // EOB: symbol 256, code 0
   sink.bits.flush();
 
   const tpucomp::OutRow& w = sink.bits.w;
@@ -286,16 +275,230 @@ deflate_encode_kernel(const uint8_t* __restrict__ data, const int32_t* __restric
 
 template <int M>
 int launch(const uint8_t* data, const int32_t* sizes, const int32_t* cand,
-           const int32_t* cand8, const int32_t* nxt, int batch, int cap, const int32_t* tab,
-           const int32_t* hdr_words, const int32_t* hdr_bits, int32_t* llh, int32_t* dh,
-           uint8_t* out, int out_cap, int32_t* out_sizes, int32_t* statuses, void* stream) {
+           const int32_t* cand8, const int32_t* nxt, int batch, int cap, int32_t* llh,
+           int32_t* dh, uint8_t* out, int out_cap, int32_t* out_sizes, int32_t* statuses,
+           void* stream) {
   if (batch <= 0) return 0;
   const int blocks = (batch + kWarpsPerBlock - 1) / kWarpsPerBlock;
   deflate_encode_kernel<M><<<blocks, kWarpsPerBlock * 32, 0,
                              static_cast<cudaStream_t>(stream)>>>(
-      data, sizes, cand, cand8, nxt, batch, cap, tab, hdr_words, hdr_bits, llh, dh, out,
-      out_cap, out_sizes, statuses);
+      data, sizes, cand, cand8, nxt, batch, cap, llh, dh, out, out_cap, out_sizes, statuses);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ================================================================== emit ==
+// One CTA of 1024 threads a chunk: the parse of csrc/lz_parse.cuh, then the
+// stream from the tokens' bit counts.
+
+using lzp::kPThreads;
+using lzp::kPWarps;
+constexpr int kWarpRounds = 2;                       // rounds a warp codes a super-round
+constexpr int kRingWords = 4096;                     // the stream's ring of words
+constexpr int kOffRing = lzp::kEndDm;                // u32 [kRingWords] in region A
+constexpr int kOffWarpBits = kOffRing + 4 * kRingWords;  // int [kPWarps]
+static_assert(kOffWarpBits + 4 * kPWarps <= lzp::kBytesA, "region A overflows");
+static_assert(4 * kNTab <= lzp::kTailBytes, "the code table does not fit the tail");
+// a super-round's tokens (<= 48 bits each) and the word left over fit the ring
+static_assert(kRingWords >= (kPThreads * kWarpRounds * 48 + 31) / 32 + 2, "the ring is short");
+
+// Token t's codes (LSB first) and their bit count: a literal's code, or a
+// match's length code, length extra bits, distance code, distance extra bits.
+__device__ __forceinline__ void token_code(int t, unsigned mm, int jm, int lane, const uint32_t* pm,
+                                           const uint16_t* dm, const uint16_t* tnum,
+                                           const uint8_t* bytes, const int32_t* tab,
+                                           uint64_t& val, int& nbits) {
+  const int below = __popc(mm & ((1u << lane) - 1u));
+  if ((mm >> lane) & 1) {
+    const int j = jm + below;
+    int li, e, ev, di, de, dv;
+    len_sym(static_cast<int>(pm[j] >> 16) + 3, li, e, ev);
+    dist_sym(dm[j] + 1, di, de, dv);
+    const uint32_t c1 = tab[257 + li] & 0xFFFF, c3 = tab[288 + di] & 0xFFFF;
+    const int n1 = tab[257 + li] >> 16, n3 = tab[288 + di] >> 16;
+    val = c1 | (static_cast<uint64_t>(ev) << n1) | (static_cast<uint64_t>(c3) << (n1 + e)) |
+          (static_cast<uint64_t>(dv) << (n1 + e + n3));
+    nbits = n1 + e + n3 + de;
+  } else {
+    const int v = bytes[lzp::literal_pos(pm, tnum, jm + below - 1, t)];
+    val = static_cast<uint32_t>(tab[v] & 0xFFFF);
+    nbits = tab[v] >> 16;
+  }
+}
+
+__global__ void __launch_bounds__(kPThreads, 1)
+deflate_emit_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__ sizes,
+                    const int32_t* __restrict__ cand, const int32_t* __restrict__ cand8,
+                    const int32_t* __restrict__ nxt, int cap, const int32_t* __restrict__ tab,
+                    const int32_t* __restrict__ hdr_words, const int32_t* __restrict__ hdr_bits,
+                    uint8_t* __restrict__ out, int out_cap, int32_t* __restrict__ out_sizes,
+                    int32_t* __restrict__ statuses) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const uint32_t* pm = reinterpret_cast<const uint32_t*>(smem + lzp::kOffPm);
+  const uint16_t* dm = reinterpret_cast<const uint16_t*>(smem + lzp::kOffDm);
+  uint32_t* ring = reinterpret_cast<uint32_t*>(smem + kOffRing);
+  int* wbits = reinterpret_cast<int*>(smem + kOffWarpBits);
+  const uint8_t* bytes = smem + lzp::kOffB;
+  const uint16_t* tnum = reinterpret_cast<const uint16_t*>(smem + lzp::kOffC);
+  int32_t* s_tab = reinterpret_cast<int32_t*>(smem + lzp::kOffTail);
+  int* scr = reinterpret_cast<int*>(smem + lzp::kOffScr);
+  int* misc = reinterpret_cast<int*>(smem + lzp::kOffMisc);
+
+  const int chunk = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, wi = tid >> 5;
+  const size_t row = static_cast<size_t>(chunk) * cap;
+  const uint8_t* in = data + row;
+  // a row past Deflate's largest chunk is parsed over its first 64 KiB
+  // (the caller gives such a chunk ERROR_CHUNK_SIZE_TOO_LARGE)
+  const int size = min(max(sizes[chunk], 0), min(cap, lzp::kMaxPos));
+  const bool matches = nxt != nullptr;
+
+  // ---- 1-5: stage the bytes and the table, parse
+  lzp::stage_bytes(smem + lzp::kOffB, in, size, cap, tid);
+  for (int i = tid; i < kNTab; i += kPThreads) s_tab[i] = tab[static_cast<size_t>(chunk) * kNTab + i];
+  lzp::deflate_parse(smem, matches ? cand + row : nullptr, matches ? cand8 + row : nullptr,
+                     matches ? nxt + row : nullptr, size, matches, tid, lane, wi);
+  const int m = misc[lzp::kM];
+  const int ntok = misc[lzp::kTokens];
+  const int rounds = (ntok + 31) >> 5;
+  constexpr int kRows = kPWarps * kWarpRounds;  // rounds a super-round
+
+  // ---- 6a: the stream's length: the header, every token's codes, EOB
+  const int hn = hdr_bits[chunk];
+  int mine = 0;
+  {
+    int jm = 0;
+    for (int g = 0; g * kRows < rounds; ++g) {
+#pragma unroll
+      for (int k = 0; k < kWarpRounds; ++k) {
+        const int key = (g * kRows + wi * kWarpRounds + k) * 32;
+        const unsigned mm = lzp::round_matches(tnum, m, key, jm, lane);
+        if (key + lane < ntok) {
+          uint64_t v;
+          int nb;
+          token_code(key + lane, mm, jm, lane, pm, dm, tnum, bytes, s_tab, v, nb);
+          mine += nb;
+        }
+      }
+    }
+  }
+  const int before = lzp::block_scan_excl(mine, 0, [](int a, int b) { return a + b; }, scr, lane,
+                                          wi);
+  if (tid == kPThreads - 1) misc[lzp::kAux] = before + mine;
+  __syncthreads();
+  const int total = hn + misc[lzp::kAux] + (s_tab[256] >> 16);
+  int op = (total + 7) >> 3;
+  const int n_blocks = max((size + 65534) / 65535, 1);
+  const bool stored = size + 5 * n_blocks < op;  // stored blocks are shorter
+  if (stored) op = size + 5 * n_blocks;
+  const bool too_big = op > out_cap;
+  uint8_t* orow = out + static_cast<size_t>(chunk) * out_cap;
+  const int osz = too_big ? 0 : op;
+  if (tid == 0) {
+    out_sizes[chunk] = osz;
+    statuses[chunk] = too_big ? kOutputTooSmall : kSuccess;
+  }
+  lzp::zero_bytes(orow, osz, out_cap, tid);
+  if (too_big) return;
+  if (stored) {  // blocks of at most 65535 bytes, headers [last, n, n >> 8, ~n, ~n >> 8]
+    for (int o = tid; o < op; o += kPThreads) {
+      const int blk = o / 65540, r = o - blk * 65540;
+      const int src = blk * 65535;
+      const int n = min(size - src, 65535);
+      int v;
+      if (r >= 5) {
+        v = bytes[src + r - 5];
+      } else {
+        const int nlen = 0xFFFF - n;
+        v = r == 0 ? (size - src == n ? 1 : 0) : r == 1 ? n & 0xFF : r == 2 ? n >> 8
+            : r == 3 ? nlen & 0xFF : nlen >> 8;
+      }
+      orow[o] = static_cast<uint8_t>(v);
+    }
+    return;
+  }
+
+  // ---- 6b: the stream: the header words, then super-rounds of tokens (a
+  // block scan of their bit counts places them; codes are or-ed into a ring
+  // of words and the finished words go to the row), then EOB
+  const bool aligned = (reinterpret_cast<uintptr_t>(orow) & 3) == 0;
+  auto flush = [&](int f0, int f1) {  // ring words [f0, f1) to the row, bytes below op
+    for (int k = f0 + tid; k < f1; k += kPThreads) {
+      const uint32_t v = ring[k & (kRingWords - 1)];
+      ring[k & (kRingWords - 1)] = 0;
+      if (aligned && 4 * k + 4 <= op) {
+        *reinterpret_cast<uint32_t*>(orow + 4 * k) = v;
+      } else {
+        for (int b = 0; b < 4 && 4 * k + b < op; ++b)
+          orow[4 * k + b] = static_cast<uint8_t>(v >> (8 * b));
+      }
+    }
+  };
+  for (int i = tid; i < kRingWords; i += kPThreads) {
+    uint32_t v = 0;
+    if (32 * i < hn) {
+      v = static_cast<uint32_t>(hdr_words[static_cast<size_t>(chunk) * kHdrWords + i]);
+      if (hn - 32 * i < 32) v &= (1u << (hn - 32 * i)) - 1u;
+    }
+    ring[i] = v;
+  }
+  __syncthreads();
+  int base = hn, flushed = 0;
+  int jm = 0;
+  for (int g = 0; g * kRows < rounds; ++g) {
+    uint64_t val[kWarpRounds];
+    int nb[kWarpRounds], inc[kWarpRounds];
+    int wsum = 0;
+#pragma unroll
+    for (int k = 0; k < kWarpRounds; ++k) {
+      const int key = (g * kRows + wi * kWarpRounds + k) * 32;
+      const unsigned mm = lzp::round_matches(tnum, m, key, jm, lane);
+      val[k] = 0;
+      nb[k] = 0;
+      if (key + lane < ntok) token_code(key + lane, mm, jm, lane, pm, dm, tnum, bytes, s_tab,
+                                        val[k], nb[k]);
+      int x = nb[k];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(lzp::kFull, x, o);
+        if (lane >= o) x += u;
+      }
+      inc[k] = wsum + x;  // inclusive, within the warp's rows
+      wsum += __shfl_sync(lzp::kFull, x, 31);
+    }
+    if (lane == 0) wbits[wi] = wsum;
+    __syncthreads();
+    int wbase = 0, gsum = 0;
+    for (int w = 0; w < kPWarps; ++w) {  // the warps before this one, and all of them
+      const int b = wbits[w];
+      wbase += w < wi ? b : 0;
+      gsum += b;
+    }
+#pragma unroll
+    for (int k = 0; k < kWarpRounds; ++k) {
+      if (!val[k]) continue;
+      const int o = base + wbase + inc[k] - nb[k];
+      const int k0 = o >> 5, sh = o & 31;
+      const uint64_t lo = val[k] << sh;
+      const uint32_t hi = sh ? static_cast<uint32_t>(val[k] >> (64 - sh)) : 0u;
+      atomicOr(ring + (k0 & (kRingWords - 1)), static_cast<uint32_t>(lo));
+      if (lo >> 32) atomicOr(ring + ((k0 + 1) & (kRingWords - 1)), static_cast<uint32_t>(lo >> 32));
+      if (hi) atomicOr(ring + ((k0 + 2) & (kRingWords - 1)), hi);
+    }
+    __syncthreads();
+    base += gsum;
+    flush(flushed, base >> 5);
+    flushed = base >> 5;
+    __syncthreads();
+  }
+  if (tid == 0) {  // end of block
+    const uint32_t v = s_tab[256] & 0xFFFF;
+    const int k0 = base >> 5, sh = base & 31;
+    const uint64_t lo = static_cast<uint64_t>(v) << sh;
+    ring[k0 & (kRingWords - 1)] |= static_cast<uint32_t>(lo);
+    ring[(k0 + 1) & (kRingWords - 1)] |= static_cast<uint32_t>(lo >> 32);
+  }
+  __syncthreads();
+  flush(flushed, (total + 31) >> 5);
 }
 
 }  // namespace
@@ -307,18 +510,19 @@ extern "C" int tpucomp_deflate_encode_fixed(const uint8_t* data, const int32_t* 
                                             const int32_t* nxt, int batch, int cap,
                                             uint8_t* out, int out_cap, int32_t* out_sizes,
                                             int32_t* statuses, void* stream) {
-  return launch<kFixed>(data, sizes, cand, cand8, nxt, batch, cap, nullptr, nullptr, nullptr,
-                        nullptr, nullptr, out, out_cap, out_sizes, statuses, stream);
+  return launch<kFixed>(data, sizes, cand, cand8, nxt, batch, cap, nullptr, nullptr, out, out_cap,
+                        out_sizes, statuses, stream);
 }
 
 extern "C" int tpucomp_deflate_encode_hist(const uint8_t* data, const int32_t* sizes,
                                            const int32_t* cand, const int32_t* cand8,
                                            const int32_t* nxt, int batch, int cap,
                                            int32_t* llh, int32_t* dh, void* stream) {
-  return launch<kHist>(data, sizes, cand, cand8, nxt, batch, cap, nullptr, nullptr, nullptr,
-                       llh, dh, nullptr, 0, nullptr, nullptr, stream);
+  return launch<kHist>(data, sizes, cand, cand8, nxt, batch, cap, llh, dh, nullptr, 0, nullptr,
+                       nullptr, stream);
 }
 
+// emit reads at most the first 64 KiB of a row.
 extern "C" int tpucomp_deflate_encode_emit(const uint8_t* data, const int32_t* sizes,
                                            const int32_t* cand, const int32_t* cand8,
                                            const int32_t* nxt, int batch, int cap,
@@ -326,6 +530,12 @@ extern "C" int tpucomp_deflate_encode_emit(const uint8_t* data, const int32_t* s
                                            const int32_t* hdr_bits, uint8_t* out, int out_cap,
                                            int32_t* out_sizes, int32_t* statuses,
                                            void* stream) {
-  return launch<kEmit>(data, sizes, cand, cand8, nxt, batch, cap, tab, hdr_words, hdr_bits,
-                       nullptr, nullptr, out, out_cap, out_sizes, statuses, stream);
+  if (batch <= 0) return 0;
+  static unsigned long long raised = 0;  // one bit a device
+  const cudaError_t e = lzp::raise_smem_limit(deflate_emit_kernel, lzp::kSmemBytes, raised);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  deflate_emit_kernel<<<batch, kPThreads, lzp::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      data, sizes, cand, cand8, nxt, cap, tab, hdr_words, hdr_bits, out, out_cap, out_sizes,
+      statuses);
+  return static_cast<int>(cudaGetLastError());
 }

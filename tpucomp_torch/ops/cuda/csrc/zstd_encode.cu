@@ -1,5 +1,6 @@
 // Batched Zstandard encode: the token walk, one warp per chunk, in two modes
-// (hist, full) of one kernel body.
+// (hist, full) of one kernel body, and the gated parse, one CTA of 1024
+// threads a chunk, which takes full's chunks whose walk is long.
 //
 // Replaces the TPU kernel tpucomp/ops/pallas/zstd_encode.py::_kernel in its
 // two trace-time modes: "hist" (called by compress_batch at
@@ -58,7 +59,12 @@
 // byte once (B x out_cap, the zero tail included; hist writes B x 377
 // counts); it reads the candidate arrays only where the walk lands, and the
 // full walk reads fse_tab (216 KB a chunk) only at the sequences' states.
-// Design: a warp per chunk, all lanes carrying the same walk state
+// The walk is latency-bound: a chunk costs its steps (candidates visited),
+// up to 24k on mixed's literal-heavy chunks, each two forward extensions
+// from global memory.  So full walks only the chunks whose hist walk took
+// at most `budget` steps (hist counts them) and the parse, below, takes the
+// others (all of them when no counts are given).
+// Design of the walk: a warp per chunk, all lanes carrying the same walk state
 // (broadcast loads, uniform branches), lane 0 storing the header and the
 // sequence bitstream; forward extension compares 32 bytes a step with a
 // ballot (warp_match_len); literal copies, the tree, the raw rewrite and the
@@ -72,6 +78,7 @@
 #include <cuda_runtime.h>
 
 #include "bytecopy.cuh"
+#include "lz_parse.cuh"
 
 namespace {
 
@@ -174,7 +181,8 @@ zstd_encode_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__
                    const uint8_t* __restrict__ nc, int32_t* __restrict__ seq_scratch,
                    uint8_t* __restrict__ lit_scratch, int32_t* __restrict__ freq_out,
                    int32_t* __restrict__ sch_out, uint8_t* __restrict__ out, int out_cap,
-                   int32_t* __restrict__ out_sizes, int32_t* __restrict__ statuses) {
+                   int32_t* __restrict__ out_sizes, int32_t* __restrict__ statuses,
+                   int32_t* __restrict__ steps_io, int budget) {
   __shared__ int32_t s_tab[kWarpsPerBlock][kHist];
   const int wi = threadIdx.x / 32;
   const int chunk = blockIdx.x * kWarpsPerBlock + wi;
@@ -200,7 +208,13 @@ zstd_encode_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__
   const int mflimit = size - kMinMatch + 1;
   int anchor = 0, scan = 0, litcnt = 0, nseq = 0;
   int r0 = 1, r1 = 4, r2 = 8;  // the repeat-offset stack, RFC 8878's initial values
+  // hist counts its steps (candidates visited) into steps_io when given;
+  // full takes only the chunks whose count is at most `budget`, the parse
+  // (zstd_full_kernel) the others
+  if (M == kFullMode && (steps_io == nullptr || steps_io[chunk] > budget)) return;
+  int steps = 0;
   while (scan < mflimit) {
+    ++steps;
     const int nm = nx[scan];
     if (nm >= mflimit || nseq >= cap_seq) break;  // the rest is literal
     const int c4p = c4[nm], c8p = c8[nm];
@@ -254,6 +268,7 @@ zstd_encode_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__
   }
 
   if (M == kHistMode) {
+    if (steps_io != nullptr && lane == 0) steps_io[chunk] = steps;
     for (int i = anchor + lane; i < size; i += 32) atomicAdd(&t[in[i]], 1);
     __syncwarp();
     for (int i = lane; i < kHist; i += 32) {
@@ -413,18 +428,769 @@ zstd_encode_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__
   }
 }
 
+// ================================================================== full ==
+// The gated parse: one CTA of 1024 threads a chunk, in phases over 227 KB of
+// shared memory (csrc/lz_parse.cuh gives the staging, the forward
+// extensions, the merged chases and the scans):
+//  1. the chunk's bytes are staged by cp.async;
+//  2. every candidate position p at once: the walk's source, offset c(p)
+//     and forward length Lf(p) (no cap: runs of one distance are resolved
+//     a run at a time, and a warp takes its stretch of blocks top down,
+//     handing each block's lowest items to the block below), its back
+//     extension up to 3 bytes, and its gate level: the least back extension
+//     b with (Lf + b) * 5 >= floor(log2 c) + 18.  Since Lf >= 4 and c <
+//     2^16, 3 bytes always pass, so the gate from an anchor s needs only
+//     min(level, p - s).  Bitmasks of the positions that pass (G) and of
+//     the candidates that are no sure keep (level above 0: R); Lf | c << 16
+//     and the level go to a global scratch;
+//  3. next(s) = E(K(s)), K(s) the first candidate the gate keeps from anchor
+//     s and E its match's end, for every s (a sure keep writes its own in 2);
+//  4. rounds: the chain from x0 through next() (32 merged chases), the
+//     sequences' match positions, the repeat stack before each (a block scan
+//     of three-offset summaries: with no literals a sequence never repeats
+//     the offset before it, so RFC 8878 3.1.1.5's update is a move to front),
+//     and the R candidates in the stretches the sequences scan: the first
+//     whose offset is on its stack is kept instead (the walk's repeat rule),
+//     and the next round starts past its match;
+//  5. each sequence's exact back extension (bounded by its anchor and
+//     src2 > 0), ll, ml, offset value and codes; its literals to the scratch
+//     row at a block scan of ll;
+//  6. the literal streams' bit counts (a reduction of code lengths), the
+//     Huffman-or-raw decision;
+//  7. the FSE states, step by step from the last sequence: the used columns
+//     of the encode tables in shared memory, 32 chases of segments from
+//     guessed states, one lane joining them where they meet;
+//  8. the sequence stream's length, the raw-block and too-big decisions;
+//  9. the frame: each literal's code at its stream's suffix sum and each
+//     sequence's fields at a prefix sum, or-ed into shared words and copied
+//     to the row; the zero tail in 16-byte stores.
+// The CTAs stay resident, one an SM, each taking every gridDim-th chunk.
+
+using lzp::kFull;
+using lzp::kPThreads;
+using lzp::kPWarps;
+using lzp::kStop;
+using lzp::kTerm;
+constexpr int kMaxPos = lzp::kMaxPos;
+constexpr int kWords = lzp::kWords;
+constexpr int kMaxSeq = lzp::kMaxMatches;          // a sequence covers >= 4 bytes
+constexpr int kNoCap = kMaxPos;                    // zstd's forward extension is not capped
+constexpr uint8_t kNotCand = 7;                    // plvl of a position without a candidate
+constexpr int kNoGate = 4;                         // plvl of a candidate that fails the gate
+
+// Global scratch a chunk, in int32 words (the wrapper allocates it): the
+// per-position table, then the per-sequence records.
+constexpr int kScrInfo = 0;                        // u32 [65536]: Lf | c << 16
+constexpr int kScrLvl = kScrInfo + kMaxPos;        // u8 [65536]: the gate level
+constexpr int kScrSeqA = kScrLvl + kMaxPos / 4;    // [kMaxSeq] ll | (ml - 3) << 16
+constexpr int kScrSeqB = kScrSeqA + kMaxSeq;       // [kMaxSeq] offset value
+constexpr int kScrStack = kScrSeqB + kMaxSeq;      // u64 [kMaxSeq] the repeat stack before
+constexpr int kScrState = kScrStack + 2 * kMaxSeq; // [kMaxSeq] FSE states after a step
+constexpr int kScrCode = kScrState + kMaxSeq;      // [kMaxSeq] llc | mlc << 6 | ofc << 12
+constexpr int kScrWords = kScrCode + kMaxSeq;
+
+// Shared memory, in bytes.  Region A: the bytes for phases 1-2, then each
+// sequence's anchor and match position (u16 lists) for the rounds and 5,
+// the FSE states for 7, the staging of the literal streams and of the
+// sequence stream for 9.  Region N: next() (u16 a position) for phases 2-4,
+// then the literals' places for 5, then (with the dead masks) the FSE
+// encode tables' used columns (u16: next state | bits << 10) and the first
+// steps' codes for 7-9.
+constexpr int kZA = 0;
+constexpr int kZPath = kZA;                        // u16 [kMaxSeq] sequence j's anchor
+constexpr int kZK = kZPath + 2 * kMaxSeq;          // u16 [kMaxSeq] its match position
+constexpr int kZN = kMaxPos + 16;                  // region N
+constexpr int kZG = kZN + 2 * kMaxPos;             // u32 [kWords] the gate bitmask
+constexpr int kZNW = kZG + 4 * kWords;             // u16 [kWords] its next set word
+constexpr int kZMarks = kZNW + 2 * kWords;         // u32 [kWords] the chain's positions
+constexpr int kZR = kZMarks + 4 * kWords;          // u32 [kWords] candidates that are no sure keep
+constexpr int kZHuf = kZR + 4 * kWords;            // int [256] the Huffman codes
+constexpr int kZScr = kZHuf + 4 * 256;             // int [32] block-scan scratch
+constexpr int kZScr64 = kZScr + 4 * 32;            // u64 [32] stack-scan scratch
+constexpr int kZMisc = kZScr64 + 8 * 32;           // int [24]
+constexpr int kZBytes = kZMisc + 4 * 24;
+constexpr int kStage = kMaxPos + 16;               // staging bytes (a stream is < 64 KiB + 13)
+constexpr int kZFse = kZN;                         // u16 [kO2LLF] the FSE columns in use
+constexpr int kZCodes = kZFse + 2 * kO2LLF;        // u32 [kCodeCap] the first steps' codes
+constexpr int kCodeCap = 10240;
+static_assert(kZK + 2 * kMaxSeq <= kZN && kStage <= kZN, "region A overflows");
+static_assert(kZCodes + 4 * kCodeCap <= kZR, "the FSE columns and codes overflow");
+static_assert(kZBytes <= lzp::kSmemMax, "more shared memory than a Hopper CTA may have");
+
+enum ZMisc { kZm = 0, kZEndPos = 1, kZEndKind = 2, kZViol = 3, kZLast0 = 4, kZLast1 = 5,
+             kZSum = 7, kZSb = 8 /* 4 */, kZNlit = 12, kZUsed = 13 /* 5 */ };
+
+// The repeat stack as a summary of a stretch of offsets: its last three
+// distinct values, newest first, 16 bits each (0: none).  push: one more
+// offset; join: an older summary under a newer one.  Since a sequence with
+// no literals never repeats the offset before it (that match ended where
+// the bytes at this offset differ), RFC 8878 3.1.1.5's update is exactly
+// push.
+__device__ __forceinline__ uint64_t st_get(uint64_t s, int i) { return (s >> (16 * i)) & 0xFFFF; }
+
+__device__ __forceinline__ uint64_t st_push(uint64_t s, int c) {
+  const uint64_t cc = static_cast<uint64_t>(c);
+  if (st_get(s, 0) == cc) return s;
+  if (st_get(s, 1) == cc) return cc | (st_get(s, 0) << 16) | (st_get(s, 2) << 32);
+  return cc | (st_get(s, 0) << 16) | (st_get(s, 1) << 32);
+}
+
+__device__ __forceinline__ uint64_t st_join(uint64_t older, uint64_t newer) {
+  uint64_t out = newer;
+  int n = st_get(newer, 0) ? (st_get(newer, 1) ? (st_get(newer, 2) ? 3 : 2) : 1) : 0;
+  for (int i = 0; i < 3 && n < 3; ++i) {
+    const uint64_t v = st_get(older, i);
+    if (v && v != st_get(newer, 0) && v != st_get(newer, 1) && v != st_get(newer, 2))
+      out |= v << (16 * n++);
+  }
+  return out;
+}
+
+// A sequence's fields: ll, ml - 3, the offset value and their codes.
+struct Seq {
+  int ll, mlv, ofv, llc, mlc, ofc;
+};
+
+__device__ __forceinline__ int fse_at(const int32_t* fse, int i) {
+  return __ldg(fse + min(max(i, 0), kFseTT - 1));
+}
+
+// The states after FSE step b from those after step b - 1 (packed ll | ml
+// << 10 | of << 20); the first step starts them from the first slots.  t16:
+// the used columns (next state | bits << 10) in fse_tab's layout.
+__device__ __forceinline__ uint32_t fse_step(const uint16_t* t16, const int32_t* fse, uint32_t code,
+                                             bool first, uint32_t prev) {
+  const int llc = code & 0x3F, mlc = (code >> 6) & 0x3F, ofr = min(static_cast<int>(code >> 12), 31);
+  if (first)
+    return static_cast<uint32_t>(fse_at(fse, kO2LLF + llc)) |
+           (static_cast<uint32_t>(fse_at(fse, kO2MLF + mlc)) << 10) |
+           (static_cast<uint32_t>(fse_at(fse, kO2OFF + ofr)) << 20);
+  const int s_ll = prev & 0x3FF, s_ml = (prev >> 10) & 0x3FF, s_of = (prev >> 20) & 0x3FF;
+  const int po = t16[kO2OF + ofr * 256 + s_of];
+  const int pm = t16[kO2ML + mlc * 512 + s_ml];
+  const int pl = t16[kO2LL + llc * 512 + s_ll];
+  return static_cast<uint32_t>(pl & 0x3FF) | (static_cast<uint32_t>(pm & 0x3FF) << 10) |
+         (static_cast<uint32_t>(po & 0x3FF) << 20);
+}
+
+// FSE step b's fields (value, width) in stream order: the OF, ML and LL
+// transitions from the states before it (width 0 at the first step: they
+// set the states), then the LL, ML and OF extra bits.  A transition emits
+// the low `bits` bits of the state (fse_tab's state - base).
+__device__ __forceinline__ void fse_fields(const uint16_t* t16, const int32_t* cst, const Seq& q,
+                                           bool first, uint32_t prev, uint32_t v[6], int n[6]) {
+  if (first) {
+    v[0] = v[1] = v[2] = 0;
+    n[0] = n[1] = n[2] = 0;
+  } else {
+    const int ofr = min(q.ofc, 31);
+    const int s_ll = prev & 0x3FF, s_ml = (prev >> 10) & 0x3FF, s_of = (prev >> 20) & 0x3FF;
+    n[0] = (t16[kO2OF + ofr * 256 + s_of] >> 10) & 0xF;
+    n[1] = (t16[kO2ML + q.mlc * 512 + s_ml] >> 10) & 0xF;
+    n[2] = (t16[kO2LL + q.llc * 512 + s_ll] >> 10) & 0xF;
+    v[0] = s_of & ((1u << n[0]) - 1u);
+    v[1] = s_ml & ((1u << n[1]) - 1u);
+    v[2] = s_ll & ((1u << n[2]) - 1u);
+  }
+  const int llpk = __ldg(cst + kOLLX + q.llc), mlpk = __ldg(cst + kOMLX + q.mlc);
+  v[3] = q.ll - static_cast<int>(static_cast<uint32_t>(llpk) >> 8), n[3] = llpk & 0xFF;
+  v[4] = q.mlv + 3 - static_cast<int>(static_cast<uint32_t>(mlpk) >> 8), n[4] = mlpk & 0xFF;
+  v[5] = q.ofv - (1 << q.ofc), n[5] = q.ofc;
+}
+
+// Or n (<= 32) bits of v into the staging words at bit o.
+__device__ __forceinline__ void or_bits(uint32_t* wds, int o, uint32_t v, int n) {
+  if (n == 0) return;
+  if (n < 32) v &= (1u << n) - 1u;
+  const uint64_t x = static_cast<uint64_t>(v) << (o & 31);
+  if (static_cast<uint32_t>(x)) atomicOr(wds + (o >> 5), static_cast<uint32_t>(x));
+  if (x >> 32) atomicOr(wds + (o >> 5) + 1, static_cast<uint32_t>(x >> 32));
+}
+
+// Copy the staging bytes [0, n) to the row at o, and zero the staging words
+// [0, ceil(n / 4)) behind them.  Ends in a barrier.
+__device__ __forceinline__ void unstage(uint32_t* wds, uint8_t* orow, int o, int n, int tid) {
+  const uint8_t* sb = reinterpret_cast<const uint8_t*>(wds);
+  for (int i = tid; i < n; i += kPThreads) orow[o + i] = sb[i];
+  __syncthreads();
+  for (int i = tid; i < (n + 3) >> 2; i += kPThreads) wds[i] = 0;
+  __syncthreads();
+}
+
+// K(s): the first candidate position p >= s that passes the cost gate from
+// anchor s (its gate level at most p - s: the back extension it needs, of
+// the at most 3 bytes before it that match), -1 if none.  Only the
+// positions in rmask (level above 0) need their level read.
+__device__ __forceinline__ int kept_from(const uint32_t* gmask, const uint32_t* rmask,
+                                         const uint16_t* nw, const uint8_t* plvl, int s) {
+  int q = lzp::next_set(gmask, nw, s);
+  while (q >= 0 && q - s < 3 && ((rmask[q >> 5] >> (q & 31)) & 1) && plvl[q] > q - s)
+    q = lzp::next_set(gmask, nw, q + 1);
+  return q;
+}
+
+__device__ __forceinline__ void full_chunk(
+    int chunk, uint8_t* smem, const uint8_t* __restrict__ data,
+    const int32_t* __restrict__ sizes, const int32_t* __restrict__ cand,
+    const int32_t* __restrict__ cand8, int cap, const int32_t* __restrict__ cst,
+    const int32_t* __restrict__ huf_meta, const uint8_t* __restrict__ tree,
+    const int32_t* __restrict__ fse_tab, const uint8_t* __restrict__ nc,
+    int32_t* __restrict__ scratch, uint8_t* __restrict__ lit_scratch, uint8_t* __restrict__ out,
+    int out_cap, int32_t* __restrict__ out_sizes, int32_t* __restrict__ statuses) {
+  uint8_t* bytes = smem + kZA;
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(bytes);
+  uint16_t* nextv = reinterpret_cast<uint16_t*>(smem + kZN);
+  uint32_t* litpos = reinterpret_cast<uint32_t*>(smem + kZN);
+  uint32_t* stage = reinterpret_cast<uint32_t*>(smem + kZA);
+  uint32_t* gmask = reinterpret_cast<uint32_t*>(smem + kZG);
+  uint16_t* nw = reinterpret_cast<uint16_t*>(smem + kZNW);
+  uint32_t* marks = reinterpret_cast<uint32_t*>(smem + kZMarks);
+  uint32_t* rmask = reinterpret_cast<uint32_t*>(smem + kZR);
+  uint16_t* path = reinterpret_cast<uint16_t*>(smem + kZPath);
+  uint16_t* tokk = reinterpret_cast<uint16_t*>(smem + kZK);
+  int32_t* huf = reinterpret_cast<int32_t*>(smem + kZHuf);
+  int* scr = reinterpret_cast<int*>(smem + kZScr);
+  uint64_t* scr64 = reinterpret_cast<uint64_t*>(smem + kZScr64);
+  int* misc = reinterpret_cast<int*>(smem + kZMisc);
+
+  const int tid = threadIdx.x, lane = tid & 31, wi = tid >> 5;
+  const size_t row = static_cast<size_t>(chunk) * cap;
+  const uint8_t* in = data + row;
+  const int size = min(max(sizes[chunk], 0), min(cap, kMaxPos));
+  const int mflimit = size - kMinMatch + 1;
+  int32_t* scw = scratch + static_cast<size_t>(chunk) * kScrWords;
+  uint32_t* pinfo = reinterpret_cast<uint32_t*>(scw + kScrInfo);
+  uint8_t* plvl = reinterpret_cast<uint8_t*>(scw + kScrLvl);
+  int32_t* seqa = scw + kScrSeqA;
+  int32_t* seqb = scw + kScrSeqB;
+  uint64_t* sstack = reinterpret_cast<uint64_t*>(scw + kScrStack);
+  uint32_t* sstate = reinterpret_cast<uint32_t*>(scw + kScrState);
+  int32_t* seqc = scw + kScrCode;
+  uint16_t* t16 = reinterpret_cast<uint16_t*>(smem + kZFse);
+  uint32_t* sst = reinterpret_cast<uint32_t*>(smem + kZA);
+  uint32_t* scodes = reinterpret_cast<uint32_t*>(smem + kZCodes);
+  const int32_t* fse = fse_tab + static_cast<size_t>(chunk) * kFseTT;
+  const int32_t* meta = huf_meta + static_cast<size_t>(chunk) * kHufMeta;
+
+  // ---- 1: stage the bytes and the Huffman codes; clear the masks
+  lzp::stage_bytes(bytes, in, size, cap, tid);
+  for (int i = tid; i < 256; i += kPThreads) huf[i] = meta[i];
+  for (int i = tid; i < kWords; i += kPThreads) gmask[i] = 0, marks[i] = 0, rmask[i] = 0;
+  if (tid < 24) misc[tid] = 0;
+  __syncthreads();
+
+  // ---- 2: every candidate position's offset c, forward length Lf (no cap:
+  // zstd's extension may run to the end of the chunk), and gate level: the
+  // least back extension b with (Lf + b) * 5 >= floor(log2 c) + 18, kept
+  // when the position's own back extension (at most 3 bytes, src2 > 0)
+  // reaches it; 3 bytes always pass (5 * 7 >= 33).  G = level <= 3.
+  const int nblk = mflimit > 0 ? (mflimit + 31) >> 5 : 0;
+  const int32_t* c4 = cand + row;
+  const int32_t* c8 = cand8 + row;
+  // warp wi takes a stretch of blocks from the top down, each handing its
+  // lowest items' first mismatches to the block below (long matches cost a
+  // compare a run, not one a block)
+  const int bper = (nblk + kPWarps - 1) / kPWarps;
+  lzp::Carry carry{{-1, -1}, {0, 0}, {0, 0}};
+  const int top = min(nblk, (wi + 1) * bper) - 1;
+  int c4n = -1, c8n = -1;  // the next block's candidates, loaded a block ahead
+  if (top >= wi * bper && top * 32 + lane < mflimit)
+    c4n = __ldg(c4 + top * 32 + lane), c8n = __ldg(c8 + top * 32 + lane);
+  for (int blk = top; blk >= wi * bper; --blk) {
+    const int p = blk * 32 + lane;
+    const int c4p = c4n, c8p = c8n;
+    c4n = c8n = -1;
+    if (blk > wi * bper) c4n = __ldg(c4 + p - 32), c8n = __ldg(c8 + p - 32);
+    const bool isc = c4p >= 0 || c8p >= 0;
+    const int p4 = c4p >= 0 ? c4p : c8p;
+    const int p8 = c8p >= 0 ? c8p : p4;
+    const int fcap = isc ? size - (p + kMinMatch) : 0;
+    const bool two = isc && p8 != p4;
+    int l4, l8;
+    lzp::warp_extend<kNoCap>(words, p, isc, p4, two, p8, fcap, size, lane, l4, l8, &carry);
+    int lvl = kNotCand;
+    uint32_t info = 0;
+    if (isc) {
+      const int len = two ? max(l4, l8) : l4;
+      const int src = two && l8 > l4 ? p8 : p4;
+      const int c = p - src, lf = kMinMatch + len;
+      int b3 = 0;
+      while (b3 < 3 && src - 1 - b3 >= 0 && bytes[p - 1 - b3] == bytes[src - 1 - b3]) ++b3;
+      const int need = max(0, (hibit(c) + 18 + 4) / 5 - lf);
+      lvl = need <= b3 ? need : kNoGate;
+      info = static_cast<uint32_t>(lf) | (static_cast<uint32_t>(c) << 16);
+    }
+    const unsigned g = __ballot_sync(kFull, lvl <= 3);
+    const unsigned r = __ballot_sync(kFull, lvl != 0 && lvl != kNotCand);
+    if (lane == 0) gmask[blk] = g, rmask[blk] = r;
+    if (lvl == 0) {  // a sure keep from its own anchor: next(p) = E(p)
+      const int e = p + static_cast<int>(info & 0xFFFF);
+      nextv[p] = static_cast<uint16_t>(e >= mflimit ? kTerm : e);
+    }
+    if (p < mflimit) {
+      pinfo[p] = info;
+      plvl[p] = static_cast<uint8_t>(lvl);
+    }
+  }
+  __syncthreads();
+
+  // ---- 3: next(s) for every other s < mflimit: E(K(s)) = K + Lf(K), the
+  // chain's next position when no repeat offset intervenes
+  if (mflimit > 0) lzp::next_set_words(gmask, nw, scr, tid, lane, wi);
+  for (int s0 = tid; s0 < mflimit; s0 += 8 * kPThreads) {  // eight at a time: loads in flight
+    int k[8];
+    uint32_t inf[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int s = s0 + u * kPThreads;
+      const bool sure = s < mflimit && ((gmask[s >> 5] & ~rmask[s >> 5]) >> (s & 31)) & 1;
+      k[u] = s < mflimit && !sure ? kept_from(gmask, rmask, nw, plvl, s) : -2;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) inf[u] = k[u] >= 0 ? pinfo[k[u]] : 0;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int s = s0 + u * kPThreads;
+      if (s >= mflimit) break;
+      if (k[u] == -2) continue;  // phase 2 wrote it
+      int v = kStop;
+      if (k[u] >= 0) {
+        const int e = k[u] + static_cast<int>(inf[u] & 0xFFFF);
+        v = e >= mflimit ? kTerm : e;
+      }
+      nextv[s] = static_cast<uint16_t>(v);
+    }
+  }
+  __syncthreads();
+
+  // ---- 4: rounds.  The chain from x0 through next() (32 merged chases),
+  // its sequences' match positions, the repeat stack before each (a block
+  // scan), then every candidate that fails the gate in the stretch a
+  // sequence scans: the first whose offset is on the stack is kept instead
+  // (the walk's repeat rule), and the next round starts past its match.
+  int x0 = 0, j0 = 0;
+  uint64_t stk0 = 1u | (4u << 16) | (static_cast<uint64_t>(8) << 32);
+  int m = 0;
+  while (x0 < mflimit) {
+    if (wi == 0) {
+      int ep, ek;
+      lzp::chase(nextv, marks, x0, mflimit, lane, ep, ek);
+      if (lane == 0) misc[kZEndPos] = ep, misc[kZEndKind] = ek, misc[kZViol] = 0x7FFFFFFF;
+    }
+    __syncthreads();
+    m = lzp::marks_to_list(marks, path, j0, x0, true, scr, misc, tid, lane, wi);
+    const int end_pos = misc[kZEndPos], end_kind = misc[kZEndKind];
+    for (int j = j0 + tid; j < m; j += kPThreads)
+      tokk[j] = static_cast<uint16_t>(kept_from(gmask, rmask, nw, plvl, path[j]));
+    __syncthreads();
+    // the stack before each sequence j >= j0: thread tid folds [q0, q1)
+    const int n = m - j0, per = (n + kPThreads - 1) / kPThreads;
+    const int q0 = j0 + min(n, tid * per), q1 = j0 + min(n, tid * per + per);
+    uint64_t sum = 0;
+    for (int j = q0; j < q1; ++j) sum = st_push(sum, pinfo[tokk[j]] >> 16);
+    uint64_t inc = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint64_t u = __shfl_up_sync(kFull, inc, o);
+      if (lane >= o) inc = st_join(u, inc);
+    }
+    if (lane == 31) scr64[wi] = inc;
+    __syncthreads();
+    uint64_t pre = stk0;
+    for (int w = 0; w < wi; ++w) pre = st_join(pre, scr64[w]);
+    uint64_t ex = __shfl_up_sync(kFull, inc, 1);
+    if (lane > 0) pre = st_join(pre, ex);
+    for (int j = q0; j < q1; ++j) {
+      sstack[j] = pre;
+      pre = st_push(pre, pinfo[tokk[j]] >> 16);
+    }
+    if (q1 == m && q1 > q0) misc[kZLast0] = static_cast<int>(pre), misc[kZLast1] = static_cast<int>(pre >> 32);
+    if (n == 0 && tid == 0) misc[kZLast0] = static_cast<int>(stk0), misc[kZLast1] = static_cast<int>(stk0 >> 32);
+    __syncthreads();
+    const uint64_t last = static_cast<uint32_t>(misc[kZLast0]) |
+                          (static_cast<uint64_t>(static_cast<uint32_t>(misc[kZLast1])) << 32);
+    // the repeat check, over the candidates that are no sure keep (rmask):
+    // thread tid takes positions [64 tid, 64 tid + 64); the sequence whose
+    // stretch holds p is the last chain position at or before it
+    {
+      const int w0 = 2 * tid;
+      uint32_t mk[2], rk[2];
+      for (int k = 0; k < 2; ++k) {
+        const uint32_t keep = w0 + k < (x0 >> 5) ? 0u
+                              : w0 + k == (x0 >> 5) ? kFull << (x0 & 31) : kFull;
+        mk[k] = marks[w0 + k] & keep;
+        rk[k] = rmask[w0 + k] & keep;
+      }
+      const int before = lzp::block_scan_excl(__popc(mk[0]) + __popc(mk[1]), 0,
+                                              [](int a, int b) { return a + b; }, scr, lane, wi);
+      bool found = false;
+      for (int k = 0; k < 2 && !found; ++k) {
+        for (uint32_t bits = rk[k]; bits && !found; bits &= bits - 1) {
+          const int bit = __ffs(bits) - 1, p = 32 * (w0 + k) + bit;
+          uint64_t sk;
+          if (end_kind == 0 && p >= end_pos) {
+            sk = last;  // the stretch after the last sequence
+          } else {
+            const int cur = j0 - 1 + before + (k ? __popc(mk[0]) : 0) +
+                            __popc(mk[k] & ((2u << bit) - 1u));
+            if (cur < j0 || p >= tokk[cur]) continue;  // inside a match
+            sk = sstack[cur];
+          }
+          const uint64_t c = pinfo[p] >> 16;
+          if (c == st_get(sk, 0) || c == st_get(sk, 1) || c == st_get(sk, 2)) {
+            atomicMin(&misc[kZViol], p);
+            found = true;
+          }
+        }
+      }
+    }
+    __syncthreads();
+    const int pv = misc[kZViol];
+    if (pv == 0x7FFFFFFF) break;
+    // the sequence that keeps pv: the last one anchored at or before it, or a
+    // new one at end_pos
+    int jv;
+    uint64_t before;
+    if (end_kind == 0 && pv >= end_pos) {
+      jv = m;
+      before = last;
+    } else {
+      int lo = j0, hi = m;  // the last j with path[j] <= pv
+      while (hi - lo > 1) {
+        const int mid = (lo + hi) >> 1;
+        if (path[mid] <= pv) lo = mid; else hi = mid;
+      }
+      jv = lo;
+      before = sstack[jv];
+    }
+    __syncthreads();
+    const int sv = jv == m ? end_pos : path[jv];
+    // clear the marks past sv, keep sv's
+    for (int w = tid; w < kWords; w += kPThreads) {
+      const int lo = sv + 1;
+      if (32 * w + 31 < lo) continue;
+      marks[w] &= (lo >> 5) == w ? ((1u << (lo & 31)) - 1u) : 0u;
+    }
+    if (tid == 0) {
+      if (jv == m) marks[sv >> 5] |= 1u << (sv & 31);
+      path[jv] = static_cast<uint16_t>(sv);
+      tokk[jv] = static_cast<uint16_t>(pv);
+      sstack[jv] = before;
+    }
+    __syncthreads();
+    stk0 = st_push(before, pinfo[pv] >> 16);
+    j0 = jv + 1;
+    m = j0;
+    x0 = pv + static_cast<int>(pinfo[pv] & 0xFFFF);
+  }
+  __syncthreads();
+
+  // ---- 5: the sequences: the exact back extension (bounded by the anchor
+  // and src2 > 0), ll, ml, the offset value from the stack; the literal
+  // counts' prefix places each sequence's literals
+  int mylit = 0;
+  {
+    const int per = (m + kPThreads - 1) / kPThreads;
+    const int q0 = min(m, tid * per), q1 = min(m, tid * per + per);
+    for (int j = q0; j < q1; ++j) {
+      const int s = path[j], k = tokk[j];
+      const uint32_t inf = pinfo[k];
+      const int c = inf >> 16, lf = inf & 0xFFFF;
+      int nm2 = k, src2 = k - c;
+      while (nm2 > s && src2 > 0 && __ldg(in + nm2 - 1) == __ldg(in + src2 - 1)) --nm2, --src2;
+      const int ll = nm2 - s, ml = k - nm2 + lf;
+      const uint64_t sk = sstack[j];
+      const int r0 = st_get(sk, 0), r1 = st_get(sk, 1), r2 = st_get(sk, 2);
+      const int ofv = ll > 0 ? (c == r0 ? 1 : c == r1 ? 2 : c == r2 ? 3 : c + 3)
+                             : (c == r1 ? 1 : c == r2 ? 2 : c + 3);
+      seqa[j] = static_cast<int32_t>(static_cast<uint32_t>(ll) | (static_cast<uint32_t>(ml - 3) << 16));
+      seqb[j] = ofv;
+      const int llc = ll_code(cst, ll), mlc = ml_code(cst, ml - 3), ofc = hibit(ofv);
+      seqc[j] = llc | (mlc << 6) | (ofc << 12);
+      atomicOr(&misc[kZUsed + (llc >> 5)], 1 << (llc & 31));
+      atomicOr(&misc[kZUsed + 2 + (mlc >> 5)], 1 << (mlc & 31));
+      atomicOr(&misc[kZUsed + 4], 1 << min(ofc, 31));
+      tokk[j] = static_cast<uint16_t>(nm2);
+      mylit += ll;
+    }
+    int at = lzp::block_scan_excl(mylit, 0, [](int a, int b) { return a + b; }, scr, lane, wi);
+    for (int j = q0; j < q1; ++j) {
+      litpos[j] = at;
+      at += tokk[j] - path[j];
+    }
+    if (tid == kPThreads - 1) misc[kZNlit] = at;
+  }
+  __syncthreads();
+  const int tail = m > 0 ? tokk[m - 1] + static_cast<int>((static_cast<uint32_t>(seqa[m - 1]) >> 16) + 3)
+                         : 0;
+  const int n_lit = misc[kZNlit] + size - tail;
+  uint8_t* lit = lit_scratch + row;
+  for (int j = wi; j <= m; j += kPWarps) {  // warp j: sequence j's literals (j == m: the tail)
+    const int a = j < m ? path[j] : tail, b = j < m ? tokk[j] : size;
+    const int o = j < m ? static_cast<int>(litpos[j]) : misc[kZNlit];
+    for (int i = lane; i < b - a; i += 32) lit[o + i] = in[a + i];
+  }
+  __syncthreads();
+  if (tid < 4) misc[kZSb + tid] = 0;
+  __syncthreads();
+
+  // ---- 6: the literal section's length: each stream's bits (4 streams of
+  // ceil(n_lit / 4) literals, the last the rest), its bytes with the
+  // sentinel, Huffman or raw
+  const int tree_b = meta[256];
+  const int per4 = (n_lit + 3) >> 2;
+  const int lper = (n_lit + kPThreads - 1) / kPThreads;
+  const int i0 = min(n_lit, tid * lper), i1 = min(n_lit, tid * lper + lper);
+  const bool try_huf = meta[257] > 0 && n_lit >= 64;
+  int sb[4] = {0, 0, 0, 0};
+  bool use_huf = false;
+  if (try_huf) {
+    int part[4] = {0, 0, 0, 0};
+    for (int i = i0; i < i1; ++i) part[min(i / per4, 3)] += huf[lit[i]] >> 12;
+    for (int k = 0; k < 4; ++k)
+      if (part[k]) atomicAdd(&misc[kZSb + k], part[k]);
+    __syncthreads();
+    int s_total = 0;
+    for (int k = 0; k < 4; ++k) sb[k] = (misc[kZSb + k] + 1 + 7) >> 3, s_total += sb[k];
+    use_huf = 5 + (tree_b + 6 + s_total) < 3 + n_lit;
+  }
+  const int csize = tree_b + 6 + sb[0] + sb[1] + sb[2] + sb[3];
+  const int o1 = use_huf ? 18 + csize : 16 + n_lit;
+
+  // ---- 7: the FSE states, step b = m - 1 - j (from the last sequence).
+  // The used columns of the encode tables come into shared memory; lane k
+  // of warp 0 chases segment k of the steps from a guessed start (the first
+  // slots), then lane 0 joins them: from the true state entering a segment
+  // it steps until it meets the guessed chase (states converge, since the
+  // next state depends on the state only through state >> bits) or the
+  // segment's end.
+  auto seq_at = [&](int b) {
+    const int j = m - 1 - b;
+    const uint32_t a = static_cast<uint32_t>(seqa[j]), code = static_cast<uint32_t>(seqc[j]);
+    Seq q;
+    q.ll = a & 0xFFFF, q.mlv = (a >> 16) & 0xFFFF, q.ofv = seqb[j];
+    q.llc = code & 0x3F, q.mlc = (code >> 6) & 0x3F, q.ofc = code >> 12;
+    return q;
+  };
+  auto used = [&](int i) {
+    if (i < kO2ML) return (misc[kZUsed + (i >> 14)] >> ((i >> 9) & 31)) & 1;
+    if (i < kO2OF) return (misc[kZUsed + 2 + ((i - kO2ML) >> 14)] >> (((i - kO2ML) >> 9) & 31)) & 1;
+    return (misc[kZUsed + 4] >> ((i - kO2OF) >> 8)) & 1;
+  };
+  for (int i0 = tid; i0 < kO2LLF; i0 += 8 * kPThreads) {  // eight loads in flight
+    int e[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int i = i0 + u * kPThreads;
+      e[u] = i < kO2LLF && used(i) ? __ldg(fse + i) : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (e[u] >= 0) t16[i0 + u * kPThreads] = static_cast<uint16_t>((e[u] & 0x3FF) | (((e[u] >> 10) & 0xF) << 10));
+  }
+  for (int b = tid; b < min(m, kCodeCap); b += kPThreads) scodes[b] = seqc[m - 1 - b];
+  __syncthreads();
+  // step b's code: from shared memory for the first kCodeCap steps
+  auto code_at = [&](int b) { return b < kCodeCap ? scodes[b] : static_cast<uint32_t>(seqc[m - 1 - b]); };
+  if (wi == 0 && m > 0) {
+    const int seg = (m + 31) >> 5;
+    const int lo = min(m, lane * seg), hi = min(m, lo + seg);
+    uint32_t st = 0;
+    if (lo < hi) {
+      st = fse_step(t16, fse, code_at(lo), true, 0);
+      sst[lo] = st;
+    }
+    for (int b = lo + 1; b < hi; b += 8) {  // the codes eight at a time, in flight together
+      uint32_t cc[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) cc[u] = b + u < hi ? code_at(b + u) : 0;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        if (b + u < hi) {
+          st = fse_step(t16, fse, cc[u], false, st);
+          sst[b + u] = st;
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) {  // the join
+      for (int k = 1; k < 32 && k * seg < m; ++k) {
+        const int end = min(m, k * seg + seg);
+        uint32_t prev = sst[k * seg - 1];
+        uint32_t code = code_at(k * seg), spec = sst[k * seg];
+        for (int b = k * seg; b < end; ++b) {
+          // the next step's code and guessed state, loaded ahead of the chain
+          const uint32_t code2 = b + 1 < end ? code_at(b + 1) : 0;
+          const uint32_t spec2 = b + 1 < end ? sst[b + 1] : 0;
+          const uint32_t st2 = fse_step(t16, fse, code, false, prev);
+          if (st2 == spec) break;
+          sst[b] = st2;
+          prev = st2;
+          code = code2, spec = spec2;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int b = tid; b < m; b += kPThreads) sstate[b] = sst[b];
+  const int sper = (m + kPThreads - 1) / kPThreads;
+  const int b0 = min(m, tid * sper), b1 = min(m, tid * sper + sper);
+  __syncthreads();
+  for (int i = tid; i < kStage / 4; i += kPThreads) stage[i] = 0;  // over the states
+  __syncthreads();
+
+  // ---- 8: the sequence stream's length, then the frame's
+  int mybits = 0;
+  for (int b = b0; b < b1; ++b) {
+    uint32_t v[6];
+    int nn[6];
+    fse_fields(t16, cst, seq_at(b), b == 0, b > 0 ? sstate[b - 1] : 0, v, nn);
+    mybits += nn[0] + nn[1] + nn[2] + nn[3] + nn[4] + nn[5];
+  }
+  const int bits_before = lzp::block_scan_excl(mybits, 0, [](int a, int b) { return a + b; }, scr,
+                                               lane, wi);
+  if (tid == kPThreads - 1) misc[kZSum] = bits_before + mybits;
+  __syncthreads();
+  const int acc_ll = fse_at(fse, kO2Meta), acc_ml = fse_at(fse, kO2Meta + 1),
+            acc_of = fse_at(fse, kO2Meta + 2);
+  const int nc_len = min(fse_at(fse, kO2Meta + 4), kNcCap);
+  const int seq_bits = misc[kZSum] + acc_ml + acc_of + acc_ll + 1;
+  const int seq_bytes = (seq_bits + 7) >> 3;
+  int total = m > 0 ? o1 + 3 + nc_len + seq_bytes : o1 + 1;
+  const bool raw = total >= 13 + size;
+  if (raw) total = 13 + size;
+  const bool too_big = total > out_cap;
+  const int osz = too_big ? 0 : total;
+  uint8_t* orow = out + static_cast<size_t>(chunk) * out_cap;
+  if (tid == 0) {
+    out_sizes[chunk] = osz;
+    statuses[chunk] = too_big ? kOutputTooSmall : kSuccess;
+  }
+  lzp::zero_bytes(orow, osz, out_cap, tid);
+  if (too_big) return;
+
+  // ---- 9: the frame: header, then raw block, or literal and sequence sections
+  if (tid == 0) {  // magic, FHD (4-byte FCS), window, FCS, block header
+    const int bh = raw ? 1 | (size << 3) : 1 | (2 << 1) | ((total - 13) << 3);
+    const int bl = 32 - __clz(max(size - 1, 1));
+    const int wl = size <= 1024 ? 10 : max(bl, 10);
+    const int head[13] = {0x28, 0xB5, 0x2F, 0xFD, 0x80, (wl - 10) << 3,
+                          size & 0xFF, (size >> 8) & 0xFF, (size >> 16) & 0xFF,
+                          (size >> 24) & 0xFF, bh & 0xFF, (bh >> 8) & 0xFF, (bh >> 16) & 0xFF};
+    for (int k = 0; k < 13; ++k) orow[k] = static_cast<uint8_t>(head[k]);
+  }
+  if (raw) {
+    for (int i = tid; i < size; i += kPThreads) orow[13 + i] = in[i];
+    return;
+  }
+  if (use_huf) {
+    // each literal's bit place in its stream, written backward: the stream's
+    // bits after it; then the sentinel after the stream's last bit
+    int part[4] = {0, 0, 0, 0};
+    for (int i = i0; i < i1; ++i) part[min(i / per4, 3)] += huf[lit[i]] >> 12;
+    // inclusive prefix of each stream's bits below this thread's range
+    int pre[4];
+    for (int k = 0; k < 4; ++k)
+      pre[k] = lzp::block_scan_excl(part[k], 0, [](int a, int b) { return a + b; }, scr, lane,
+                                    wi);
+    int sbits[4], sbyte[4], at = 0;
+    for (int k = 0; k < 4; ++k) sbits[k] = misc[kZSb + k], sbyte[k] = at, at += sb[k];
+    for (int i = i0; i < i1; ++i) {
+      const int k = min(i / per4, 3);
+      const int pk = huf[lit[i]];
+      pre[k] += pk >> 12;
+      or_bits(stage, 8 * sbyte[k] + sbits[k] - pre[k], pk & 0xFFF, pk >> 12);
+    }
+    if (tid < 4) or_bits(stage, 8 * sbyte[tid] + sbits[tid], 1, 1);
+    __syncthreads();
+    unstage(stage, orow, 18 + tree_b + 6, at, tid);
+    for (int i = tid; i < min(tree_b, kTreeCap); i += kPThreads)
+      orow[18 + i] = tree[static_cast<size_t>(chunk) * kTreeCap + i];
+    if (tid == 0) {
+      const int jo = 18 + tree_b;
+      for (int k = 0; k < 3; ++k) {
+        orow[jo + 2 * k] = static_cast<uint8_t>(sb[k] & 0xFF);
+        orow[jo + 2 * k + 1] = static_cast<uint8_t>((sb[k] >> 8) & 0xFF);
+      }
+      // the 5-byte header: type 2 (compressed), Size_Format 3 (18 + 18 bits)
+      const uint32_t lo = 2u | (3u << 2) | ((static_cast<uint32_t>(n_lit) & 0x3FFFF) << 4) |
+                          ((static_cast<uint32_t>(csize) & 0x3FF) << 22);
+      for (int k = 0; k < 4; ++k) orow[13 + k] = static_cast<uint8_t>((lo >> (8 * k)) & 0xFF);
+      orow[17] = static_cast<uint8_t>((csize >> 10) & 0xFF);
+    }
+  } else {  // raw literals, the 3-byte header (Size_Format 3: a 20-bit size)
+    if (tid == 0) {
+      orow[13] = static_cast<uint8_t>((3 << 2) | ((n_lit & 0xF) << 4));
+      orow[14] = static_cast<uint8_t>((n_lit >> 4) & 0xFF);
+      orow[15] = static_cast<uint8_t>((n_lit >> 12) & 0xFF);
+    }
+    for (int i = tid; i < n_lit; i += kPThreads) orow[16 + i] = lit[i];
+  }
+  if (m == 0) {
+    if (tid == 0) orow[o1] = 0;
+    return;
+  }
+  // the sequences section: count, modes, the tables' descriptions, the stream
+  if (tid == 0) {
+    orow[o1] = static_cast<uint8_t>(128 + (m >> 8));
+    orow[o1 + 1] = static_cast<uint8_t>(m & 0xFF);
+    orow[o1 + 2] = static_cast<uint8_t>(fse_at(fse, kO2Meta + 3));
+  }
+  for (int i = tid; i < nc_len; i += kPThreads)
+    orow[o1 + 3 + i] = nc[static_cast<size_t>(chunk) * kNcCap + i];
+  int o = bits_before;
+  for (int b = b0; b < b1; ++b) {
+    uint32_t v[6];
+    int nn[6];
+    fse_fields(t16, cst, seq_at(b), b == 0, b > 0 ? sstate[b - 1] : 0, v, nn);
+    for (int k = 0; k < 6; ++k) {
+      or_bits(stage, o, v[k], nn[k]);
+      o += nn[k];
+    }
+  }
+  if (tid == 0) {  // the final states and the padding bit
+    const uint32_t st = sstate[m - 1];
+    int q = misc[kZSum];
+    or_bits(stage, q, (st >> 10) & 0x3FF, acc_ml), q += acc_ml;
+    or_bits(stage, q, (st >> 20) & 0x3FF, acc_of), q += acc_of;
+    or_bits(stage, q, st & 0x3FF, acc_ll), q += acc_ll;
+    or_bits(stage, q, 1, 1);
+  }
+  __syncthreads();
+  unstage(stage, orow, o1 + 3 + nc_len, seq_bytes, tid);
+}
+
+// The parse, a CTA an SM: each takes every gridDim-th chunk that the walk
+// has not taken (steps given and at most budget).
+__global__ void __launch_bounds__(kPThreads, 1)
+zstd_full_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__ sizes,
+                 const int32_t* __restrict__ cand, const int32_t* __restrict__ cand8, int batch,
+                 int cap, const int32_t* __restrict__ cst, const int32_t* __restrict__ huf_meta,
+                 const uint8_t* __restrict__ tree, const int32_t* __restrict__ fse_tab,
+                 const uint8_t* __restrict__ nc, int32_t* __restrict__ scratch,
+                 uint8_t* __restrict__ lit_scratch, uint8_t* __restrict__ out, int out_cap,
+                 int32_t* __restrict__ out_sizes, int32_t* __restrict__ statuses,
+                 const int32_t* __restrict__ steps, int budget) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  for (int chunk = blockIdx.x; chunk < batch; chunk += gridDim.x) {
+    if (steps != nullptr && steps[chunk] <= budget) continue;  // the walk's
+    full_chunk(chunk, smem, data, sizes, cand, cand8, cap, cst, huf_meta, tree, fse_tab, nc,
+               scratch, lit_scratch, out, out_cap, out_sizes, statuses);
+    __syncthreads();  // shared memory is the next chunk's
+  }
+}
+
 template <int M>
-int launch(const uint8_t* data, const int32_t* sizes, const int32_t* cand, const int32_t* cand8,
-           const int32_t* nxt, int batch, int cap, int cap_seq, const int32_t* cst,
-           const int32_t* huf_meta, const uint8_t* tree, const int32_t* fse_tab,
-           const uint8_t* nc, int32_t* seq_scratch, uint8_t* lit_scratch, int32_t* freq,
-           int32_t* sch, uint8_t* out, int out_cap, int32_t* out_sizes, int32_t* statuses,
-           void* stream) {
-  if (batch <= 0) return 0;
+int launch_walk(const uint8_t* data, const int32_t* sizes, const int32_t* cand,
+                const int32_t* cand8, const int32_t* nxt, int batch, int cap, int cap_seq,
+                const int32_t* cst, const int32_t* huf_meta, const uint8_t* tree,
+                const int32_t* fse_tab, const uint8_t* nc, int32_t* seq_scratch,
+                uint8_t* lit_scratch, int32_t* freq, int32_t* sch, uint8_t* out, int out_cap,
+                int32_t* out_sizes, int32_t* statuses, int32_t* steps, int budget, void* stream) {
   const int blocks = (batch + kWarpsPerBlock - 1) / kWarpsPerBlock;
   zstd_encode_kernel<M><<<blocks, kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       data, sizes, cand, cand8, nxt, batch, cap, cap_seq, cst, huf_meta, tree, fse_tab, nc,
-      seq_scratch, lit_scratch, freq, sch, out, out_cap, out_sizes, statuses);
+      seq_scratch, lit_scratch, freq, sch, out, out_cap, out_sizes, statuses, steps, budget);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -433,28 +1199,58 @@ int launch(const uint8_t* data, const int32_t* sizes, const int32_t* cand, const
 // Each launches on `stream` and returns cudaGetLastError() after the launch
 // (0 = ok).  cst is ops/cuda/zstd_encode.py's CONST; cap_seq the sequence
 // slots a chunk may fill (cap / 4 + 8).
+// hist writes each chunk's walk steps (candidates visited) into steps
+// int32[B] when it is not null.
 extern "C" int tpucomp_zstd_encode_hist(const uint8_t* data, const int32_t* sizes,
                                         const int32_t* cand, const int32_t* cand8,
                                         const int32_t* nxt, int batch, int cap, int cap_seq,
                                         const int32_t* cst, int32_t* freq, int32_t* sch,
-                                        void* stream) {
-  return launch<kHistMode>(data, sizes, cand, cand8, nxt, batch, cap, cap_seq, cst, nullptr,
-                           nullptr, nullptr, nullptr, nullptr, nullptr, freq, sch, nullptr, 0,
-                           nullptr, nullptr, stream);
+                                        int32_t* steps, void* stream) {
+  if (batch <= 0) return 0;
+  return launch_walk<kHistMode>(data, sizes, cand, cand8, nxt, batch, cap, cap_seq, cst,
+                                nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, freq, sch,
+                                nullptr, 0, nullptr, nullptr, steps, 0, stream);
 }
 
-// huf_meta int32[B, 258] (code | nbits << 12 per byte, tree bytes, huf_ok),
-// tree uint8[B, 176], fse_tab int32[B, 54016], nc uint8[B, 512]; scratch:
-// seq_scratch int32[B, 2 * cap_seq], lit_scratch uint8[B, cap].
+// The parse's scratch a chunk, in int32 words.
+extern "C" int tpucomp_zstd_encode_scratch_words() { return kScrWords; }
+
+// Two launches: the walk takes the chunks whose hist walk took at most
+// `budget` steps (steps int32[B] from tpucomp_zstd_encode_hist; none when
+// steps is null), the parse the others.  huf_meta int32[B, 258] (code |
+// nbits << 12 per byte, tree bytes, huf_ok), tree uint8[B, 176], fse_tab
+// int32[B, 54016], nc uint8[B, 512]; scratch: seq_scratch int32[B, 2 *
+// cap_seq] (the walk's sequences), lit_scratch uint8[B, cap], scratch
+// int32[B, scratch_words()] (the parse's per-position table and sequence
+// records).  cap <= 65536.
 extern "C" int tpucomp_zstd_encode_full(const uint8_t* data, const int32_t* sizes,
                                         const int32_t* cand, const int32_t* cand8,
                                         const int32_t* nxt, int batch, int cap, int cap_seq,
                                         const int32_t* cst, const int32_t* huf_meta,
                                         const uint8_t* tree, const int32_t* fse_tab,
                                         const uint8_t* nc, int32_t* seq_scratch,
-                                        uint8_t* lit_scratch, uint8_t* out, int out_cap,
-                                        int32_t* out_sizes, int32_t* statuses, void* stream) {
-  return launch<kFullMode>(data, sizes, cand, cand8, nxt, batch, cap, cap_seq, cst, huf_meta,
-                           tree, fse_tab, nc, seq_scratch, lit_scratch, nullptr, nullptr, out,
-                           out_cap, out_sizes, statuses, stream);
+                                        uint8_t* lit_scratch, int32_t* scratch,
+                                        const int32_t* steps, int budget, uint8_t* out,
+                                        int out_cap, int32_t* out_sizes, int32_t* statuses,
+                                        void* stream) {
+  if (batch <= 0) return 0;
+  if (cap > kMaxPos) return static_cast<int>(cudaErrorInvalidValue);
+  static unsigned long long raised = 0;  // one bit a device
+  cudaError_t e = lzp::raise_smem_limit(zstd_full_kernel, kZBytes, raised);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return static_cast<int>(e);
+  if (steps != nullptr) {
+    const int rc = launch_walk<kFullMode>(data, sizes, cand, cand8, nxt, batch, cap, cap_seq, cst,
+                                          huf_meta, tree, fse_tab, nc, seq_scratch, lit_scratch,
+                                          nullptr, nullptr, out, out_cap, out_sizes, statuses,
+                                          const_cast<int32_t*>(steps), budget, stream);
+    if (rc != 0) return rc;
+  }
+  zstd_full_kernel<<<min(batch, sms), kPThreads, kZBytes, static_cast<cudaStream_t>(stream)>>>(
+      data, sizes, cand, cand8, batch, cap, cst, huf_meta, tree, fse_tab, nc, scratch, lit_scratch,
+      out, out_cap, out_sizes, statuses, steps, budget);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -3,16 +3,22 @@
 Port of :mod:`tpucomp.ops.pallas.deflate_encode` (``_kernel`` in its three
 modes, ``_prep``, ``compress_batch``, ``_dyn_tables``, ``compress_batch_dyn``).
 :func:`tpucomp_torch.ops.match.candidates2` (32 KiB window) finds the match
-candidates; one kernel body, ``csrc/deflate_encode.cu`` (one warp per chunk;
-its header says what it replaces, what bounds it and how it is built), walks
-each chunk at token rate in one of three modes that see the same tokens:
+candidates; ``csrc/deflate_encode.cu`` (its header says what it replaces,
+what bounds it and how it is built) turns them into tokens in one of three
+modes that see the same tokens:
 
 * ``fixed`` — one fixed-Huffman block (algo 0), :func:`fixed_kernel`;
 * ``hist`` — litlen/dist symbol counts, :func:`hist_kernel`;
 * ``emit`` — one block with the chunk's dynamic tables and the pre-packed
   header from :func:`dyn_tables` (torch ops), :func:`emit_kernel`;
 
-and rewrites a stream longer than stored blocks as stored blocks.
+and rewrites a stream longer than stored blocks as stored blocks.  ``fixed``
+and ``hist`` walk a chunk's tokens serially, one warp a chunk.  ``emit``
+parses a chunk in parallel, one CTA a chunk, as GDeflate's parse does
+(``csrc/lz_parse.cuh``; plain pieces in :mod:`tpucomp_torch.ops.cuda.lz_parse`),
+and places every token's codes by one prefix sum of their bit counts
+(:func:`stream_from_path_plain` is that emission's plain version); it reads
+at most a row's first 64 KiB (Deflate's largest chunk).
 :func:`compress_batch` is algo 0; :func:`compress_batch_dyn` is algo 1
 (hist, tables, emit) and, with ``entropy_only``, algo 2 (no matches).  The
 plain versions run the same walks in Python; the CPU tests hold them against
@@ -173,17 +179,73 @@ def _emit_chunk(row: bytes, size: int, toks: list, tail: int, tab: list | None,
 
     n_blocks = max((size + 65534) // 65535, 1)
     if size + 5 * n_blocks < len(out):                   # stored blocks are shorter
-        out = bytearray()
-        src = 0
-        while True:
-            n = min(size - src, 65535)
-            last = int(size - src == n)
-            nlen = 0xFFFF - n
-            out += bytes((last, n & 0xFF, n >> 8, nlen & 0xFF, nlen >> 8)) + row[src:src + n]
-            src += n
-            if src >= size:
-                return out
+        return _stored(row, size)
     return out
+
+
+def _stored(row: bytes, size: int) -> bytearray:
+    """The stored-block rewrite: blocks of at most 65535 bytes, headers
+    ``[last, n & 255, n >> 8, nlen & 255, nlen >> 8]``; size 0 gives one
+    empty final block."""
+    out = bytearray()
+    src = 0
+    while True:
+        n = min(size - src, 65535)
+        last = int(size - src == n)
+        nlen = 0xFFFF - n
+        out += bytes((last, n & 0xFF, n >> 8, nlen & 0xFF, nlen >> 8)) + row[src:src + n]
+        src += n
+        if src >= size:
+            return out
+
+
+def stream_from_path_plain(row: bytes, size: int, matches: list, numbers: list, tokens: int,
+                           tab: list, hdr: tuple[list, int]) -> bytearray:
+    """The emit kernel's frame of one chunk from its parse
+    (``lz_parse.path_plain``'s ``matches``, ``numbers``, ``tokens``): every
+    token's code bits (a literal's code, or a match's length code, length
+    extra, distance code, distance extra), their offsets a prefix sum that
+    starts after the ``hdr`` bits, the end-of-block code last; the byte
+    count ``ceil(bits / 8)`` decides the stored-block rewrite before any
+    bit is placed."""
+    words_h, hn = hdr
+    t_of = np.asarray(numbers, np.int64)
+    lit = np.ones(tokens, bool)
+    lit[t_of] = False
+    covered = np.zeros(size + 1, bool)
+    for _, start, ml, _ in matches:
+        covered[start:start + ml] = True
+    code = np.array([e & 0xFFFF for e in tab[:256]], np.int64)
+    width = np.array([e >> 16 for e in tab[:256]], np.int64)
+    val = np.zeros(tokens, np.int64)
+    nbits = np.zeros(tokens, np.int64)
+    v = np.frombuffer(row[:size], np.uint8)[~covered[:size]].astype(np.int64)
+    val[lit], nbits[lit] = code[v], width[v]
+    for t, (_, _, ml, dist) in zip(numbers, matches):
+        li, e, ev = _len_sym(ml)
+        di, de, dv = _dist_sym(dist)
+        c1, n1 = tab[257 + li] & 0xFFFF, tab[257 + li] >> 16
+        c3, n3 = tab[288 + di] & 0xFFFF, tab[288 + di] >> 16
+        val[t] = c1 | (ev << n1) | (c3 << (n1 + e)) | (dv << (n1 + e + n3))
+        nbits[t] = n1 + e + n3 + de
+    off = hn + np.cumsum(nbits) - nbits
+    total = hn + int(nbits.sum()) + (tab[256] >> 16)
+    nbytes = (total + 7) >> 3
+    n_blocks = max((size + 65534) // 65535, 1)
+    if size + 5 * n_blocks < nbytes:
+        return _stored(row, size)
+    words = np.zeros((total + 31) // 32 + 3, np.uint64)
+    for i in range((hn + 31) // 32):
+        words[i] = (words_h[i] & 0xFFFFFFFF) & ((1 << min(hn - 32 * i, 32)) - 1)
+    val = np.append(val, tab[256] & 0xFFFF).astype(np.uint64)
+    off = np.append(off, total - (tab[256] >> 16))
+    k0, sh = off >> 5, (off & 31).astype(np.uint64)
+    m32 = np.uint64(0xFFFFFFFF)
+    lo, hi = val & m32, val >> np.uint64(32)
+    for i, part in enumerate(((lo << sh) & m32, ((lo << sh) >> np.uint64(32)) | ((hi << sh) & m32),
+                              (hi << sh) >> np.uint64(32))):
+        np.bitwise_or.at(words, k0 + i, part)
+    return bytearray(words.astype("<u4").tobytes()[:nbytes])
 
 
 # --- candidates ------------------------------------------------------------------------

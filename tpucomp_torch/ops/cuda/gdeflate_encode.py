@@ -58,8 +58,9 @@ from tpucomp_torch.formats.deflate import (CL_ORDER, FIXED_LIT_LENS, MAX_BITS, a
 from tpucomp_torch.formats.gdeflate import FIXED_GDIST_LENS, HDR, N_LANES, PAYLOAD
 from tpucomp_torch.ops import match
 from tpucomp_torch.ops.cuda import _build
-from tpucomp_torch.ops.cuda.deflate_encode import (_FIXED_LIT, MAX_MATCH, MIN_MATCH, _dist_sym,
-                                                   _len_sym, _rev, _rows, _walk)
+from tpucomp_torch.ops.cuda.deflate_encode import (_FIXED_LIT, _dist_sym, _len_sym, _rev, _rows,
+                                                   _walk)
+from tpucomp_torch.ops.cuda.lz_parse import next_tokens_plain, path_plain  # noqa: F401
 from tpucomp_torch.ops.cuda.lz4_encode2 import _clamped_sizes
 
 NT_CAP = 65536          # tokens a tile may have (all literals of 64 KiB)
@@ -205,103 +206,9 @@ def hist_plain(data, sizes, cands):
 
 # --- the parse's pieces, plain ------------------------------------------------------------
 # The fixed and emit kernels do not walk: they compute every position's next
-# token at once, follow the chain of next tokens from 0, and code the tokens
-# at once.  These are those passes' plain versions, one chunk at a time.
-
-def _common_prefix(words: np.ndarray, a: np.ndarray, c: np.ndarray,
-                   cap_n: np.ndarray) -> np.ndarray:
-    """Per element, the common-prefix length of the bytes at ``a`` and at
-    ``c``, at most ``cap_n`` (<= 254), 8 bytes a step: ``words[x]`` holds
-    the 8 bytes at ``x`` (little-endian), far enough past the last byte
-    that ``a + cap_n`` and ``c + cap_n`` stay inside."""
-    n = np.zeros(a.shape, np.int64)
-    live = np.nonzero(cap_n > 0)[0]
-    for k in range(0, int(cap_n.max()) if cap_n.size else 0, 8):
-        if not live.size:
-            break
-        x = words[a[live] + k] ^ words[c[live] + k]
-        low = (x & (~x + np.uint64(1))).astype(np.float64)     # the lowest set bit
-        first = np.where(x != 0, np.log2(np.maximum(low, 1)).astype(np.int64) >> 3, 8)
-        n[live] = k + first
-        live = live[(x == 0) & (k + 8 < cap_n[live])]
-    return np.minimum(n, cap_n)
-
-
-def next_tokens_plain(row: torch.Tensor, size: int, cand: torch.Tensor,
-                      cand8: torch.Tensor) -> dict:
-    """The parse kernel's next-token pass, for one chunk (``row uint8[cap]``,
-    candidates2's ``cand`` and ``cand8`` rows).
-
-    A position ``p < mflimit`` has a candidate where ``cand`` or ``cand8`` is
-    set (where candidates2's ``nxt`` points).  There the walk's forward
-    extensions give ``length[p]`` (the longer, cand8 only if longer) from
-    ``src[p]``, and the back extension through the positions before ``p``
-    that have none gives ``start[p]`` (``A``).  A scan position ``s`` whose
-    first candidate at or after it is ``p`` starts its match at ``max(s,
-    A)`` and goes on to ``next[s] = min(p + 4 + length, max(s, A) + 258)``;
-    -1 where no candidate is left.  Returns those four int64 tensors over
-    ``[0, mflimit)`` and ``cand_at`` (``p``, -1 for none)."""
-    mflimit = max(size - MIN_MATCH + 1, 0)
-    i64 = torch.int64
-    padded = np.zeros(size + 16, np.uint8)
-    padded[:size] = row[:size].numpy()
-    words = np.lib.stride_tricks.sliding_window_view(padded, 8).copy().view("<u8")[:, 0]
-    row = torch.cat([row[:size].to(i64), torch.zeros(1, dtype=i64)])
-    pos = torch.arange(mflimit, dtype=i64)
-    c4, c8 = cand[:mflimit].to(i64), cand8[:mflimit].to(i64)
-    isc = (c4 >= 0) | (c8 >= 0)
-    p4 = torch.where(c4 >= 0, c4, c8)
-    p8 = torch.where(c8 >= 0, c8, p4)
-    fcap = torch.where(isc, (size - (pos + MIN_MATCH)).clamp(max=MAX_MATCH - MIN_MATCH), 0)
-    two = isc & (p8 != p4)
-    a = (pos + MIN_MATCH).numpy()
-    l4 = torch.from_numpy(_common_prefix(words, a, (p4 + MIN_MATCH).numpy(), fcap.numpy()))
-    l8 = torch.from_numpy(_common_prefix(words, a, (p8 + MIN_MATCH).numpy(),
-                                         torch.where(two, fcap, 0).numpy()))
-    length = torch.where(two, torch.maximum(l4, l8), l4)
-    src = torch.where(two & (l8 > l4), p8, p4)
-    bk = torch.zeros_like(pos)
-    live = isc.clone()
-    k = 0
-    while bool(live.any()):
-        x, y = pos - 1 - k, src - 1 - k
-        ok = live & (x >= 0) & (y >= 0)
-        xs, ys = x.clamp(min=0), y.clamp(min=0)
-        live = ok & (row[xs] == row[ys]) & ~isc[xs]
-        bk += live.to(i64)
-        k += 1
-    start = pos - bk
-    marked = torch.where(isc, pos, mflimit)
-    nxt = torch.flip(torch.cummin(torch.flip(marked, [0]), 0).values, [0]) if mflimit else marked
-    found = nxt < mflimit
-    p = torch.where(found, nxt, 0)
-    nexts = torch.minimum(p + MIN_MATCH + length[p], torch.maximum(pos, start[p]) + MAX_MATCH)
-    return {"next": torch.where(found, nexts, -1), "cand_at": torch.where(found, nxt, -1),
-            "start": start, "length": length, "src": src}
-
-
-def path_plain(tok: dict, size: int) -> tuple[list, list, int]:
-    """The chain of next tokens from position 0 and the token numbering, for
-    one chunk: ``(matches, numbers, tokens)``, ``matches`` the walk's
-    ``(anchor, start, length, distance)`` along the chain (as
-    ``deflate_encode._walk`` gives them), ``numbers[j]`` the token number of
-    match ``j`` (the literals and matches before it), ``tokens`` the chunk's
-    token count (with the trailing literals)."""
-    nxt = tok["next"].tolist()
-    mflimit = len(nxt)
-    matches, numbers = [], []
-    s, lits = 0, 0
-    while s < mflimit and nxt[s] >= 0:
-        p = int(tok["cand_at"][s])
-        start = max(s, int(tok["start"][p]))
-        ml = min(p - start + MIN_MATCH + int(tok["length"][p]), MAX_MATCH)
-        lits += start - s
-        numbers.append(lits + len(matches))
-        matches.append((s, start, ml, p - int(tok["src"][p])))
-        s = nxt[s]
-    end = matches[-1][1] + matches[-1][2] if matches else 0
-    return matches, numbers, lits + len(matches) + size - end
-
+# token at once, follow the chain of next tokens from 0 (the plain versions
+# of those passes are ops/cuda/lz_parse.py's, shared with Deflate's emit),
+# and code the tokens at once.
 
 def lanes_from_path_plain(row: bytes, size: int, matches: list, numbers: list, tokens: int,
                           tab: list | None):

@@ -5,15 +5,23 @@ Port of :mod:`tpucomp.ops.pallas.zstd_encode` (``_kernel`` in its modes
 ``hist`` and ``full``, ``_seq_tables``, ``_predef_fse_tab``,
 ``compress_batch``).  :func:`tpucomp_torch.ops.match.candidates2` (64 KiB
 window: an offset may reach the whole chunk) finds the match candidates;
-one kernel body, ``csrc/zstd_encode.cu`` (one warp per chunk; its header says
-what it replaces, what bounds it and how it is built), walks each chunk at
-token rate in one of two modes that see the same sequences:
+``csrc/zstd_encode.cu`` (its header says what it replaces, what bounds it
+and how it is built) turns them into sequences in one of two modes that see
+the same sequences:
 
 * ``hist`` — the exact literal-byte histogram and the LL/ML/OF code
-  histograms of the sequences the walk keeps, :func:`hist_kernel`;
+  histograms of the sequences the walk keeps, :func:`hist_kernel` (one warp
+  a chunk walks the sequences serially, and counts its steps);
 * ``full`` — one complete single-block frame: 4-stream Huffman literals (or
   raw ones), the sequences through three FSE state machines, and a raw-block
-  rewrite when that is not shorter, :func:`full_kernel`.
+  rewrite when that is not shorter, :func:`full_kernel`.  The serial walk
+  takes the chunks whose hist walk took at most :data:`WALK_BUDGET` steps;
+  a gated parse, one CTA a chunk, takes the others: every candidate
+  position tabulated at once (:func:`position_table_plain`), the chain the
+  cost gate gives (:func:`next_kept_plain`), rounds that add the repeat
+  offsets' keeps (:func:`gated_chain_plain`), the literal streams and the
+  FSE states from prefix sums (:func:`huf_offsets_plain`,
+  :func:`fse_states_plain`, :func:`frame_from_parse_plain`).
 
 Between them, in torch ops over the batch, :func:`seq_tables` builds each
 chunk's FSE tables (custom where they pay, else the predefined ones) and
@@ -33,6 +41,7 @@ byte-identical to the reference's.  A frame longer than ``out_cap`` gives
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -45,6 +54,10 @@ from tpucomp_torch.ops.cuda.lz4_encode2 import _clamped_sizes, _match_len
 
 MIN_MATCH = 4
 MAX_CAP = 65536   # 16-bit (ll, ml - 3) packing; wider chunks take the multi-block encoder
+# the full kernel walks a chunk whose hist walk took at most this many steps
+# (candidates visited) and parses the others: a walk is latency-bound, a
+# chunk's parse costs about what 500 steps of the walk do
+WALK_BUDGET = 512
 
 # ---- the constant table: code lookups and the packed predefined encoders ----------
 # zstd's own LL_Code[64] / ML_Code[128] (beyond them: the high bit plus a delta)
@@ -396,6 +409,275 @@ def _emit_chunk(row: bytes, size: int, seqs: list, lits: bytes, meta: list, tree
     return head + body
 
 
+# --- the full kernel's pieces, plain ---------------------------------------------------
+# The full kernel does not walk: it tabulates every candidate position at once
+# (offset, forward length, the back extension the cost gate needs), follows
+# the chain of kept sequences that the gate alone gives (32 merged chases of
+# next()), then checks in rounds whether a repeat offset keeps an earlier
+# candidate; the literal streams and the FSE states come from prefix sums.
+# These are those passes' plain versions, one chunk at a time; the CPU tests
+# hold them against :func:`_walk` and the frames against :func:`full_plain`.
+
+def _hibit(v: np.ndarray) -> np.ndarray:
+    """floor(log2 v) for v >= 1, exactly."""
+    return np.frexp(np.maximum(v, 1).astype(np.float64))[1].astype(np.int64) - 1
+
+
+def _match_lengths(buf: np.ndarray, size: int, a: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """Per element, the common-prefix length of the bytes at ``a`` and at
+    ``c < a``, up to the chunk's end (no cap): 8 bytes a step for the first
+    64, then, for what is left, the first byte at or past ``a + 64`` that
+    differs from the one its distance before (one pass a distance)."""
+    cap = size - a
+    n = np.zeros(a.shape, np.int64)
+    words = np.lib.stride_tricks.sliding_window_view(buf, 8).copy().view("<u8")[:, 0]
+    live = np.nonzero(cap > 0)[0]
+    for k in range(0, 64, 8):
+        if not live.size:
+            break
+        x = words[a[live] + k] ^ words[c[live] + k]
+        low = (x & (~x + np.uint64(1))).astype(np.float64)     # the lowest set bit
+        first = np.where(x != 0, np.log2(np.maximum(low, 1)).astype(np.int64) >> 3, 8)
+        n[live] = k + first
+        live = live[(x == 0) & (k + 8 < cap[live])]
+    dist = a[live] - c[live]
+    for d in np.unique(dist):
+        sel = live[dist == d]
+        idx = np.arange(d, size)
+        mis = np.where(buf[d:size] == buf[:size - d], size, idx)
+        nf = np.minimum.accumulate(mis[::-1])[::-1]             # first mismatch at or past x
+        start = a[sel] + 64
+        n[sel] = np.where(start < size, nf[np.minimum(start, size - 1) - d], size) - a[sel]
+    return np.minimum(n, cap)
+
+
+def position_table_plain(row: torch.Tensor, size: int, cand: torch.Tensor,
+                         cand8: torch.Tensor) -> dict:
+    """The full kernel's per-position pass, for one chunk (``row uint8[cap]``,
+    candidates2's ``cand`` and ``cand8`` rows): at every position ``p <
+    mflimit`` with a candidate, the offset ``c = p - src`` of the walk's
+    source (cand8 only if its forward extension is longer), ``lf = 4 +``
+    the forward extension (no cap), and ``lvl``: the least back extension
+    ``b`` with ``(lf + b) * 5 >= floor(log2 c) + 18`` when the position's
+    own back extension (up to 3 bytes, ``src2 > 0``) reaches it, else 4 (the
+    gate fails whatever the anchor); 7 where there is no candidate.  Int64
+    tensors over ``[0, mflimit)``."""
+    mflimit = max(size - MIN_MATCH + 1, 0)
+    buf = np.zeros(size + 16, np.uint8)
+    buf[:size] = row[:size].numpy()
+    pos = np.arange(mflimit)
+    c4, c8 = cand[:mflimit].numpy().astype(np.int64), cand8[:mflimit].numpy().astype(np.int64)
+    isc = (c4 >= 0) | (c8 >= 0)
+    p4 = np.where(c4 >= 0, c4, c8)
+    p8 = np.where(c8 >= 0, c8, p4)
+    two = isc & (p8 != p4)
+    at = np.nonzero(isc)[0]
+    la = np.zeros(mflimit, np.int64)
+    la[at] = _match_lengths(buf, size, pos[at] + MIN_MATCH, p4[at] + MIN_MATCH)
+    lb = la.copy()
+    tw = np.nonzero(two)[0]
+    lb[tw] = _match_lengths(buf, size, pos[tw] + MIN_MATCH, p8[tw] + MIN_MATCH)
+    src = np.where(two & (lb > la), p8, p4)
+    lf = MIN_MATCH + np.maximum(la, lb)
+    c = np.where(isc, pos - src, 0)
+    b3 = np.zeros(mflimit, np.int64)
+    ok = isc.copy()
+    for k in range(3):
+        xs, ys = pos - 1 - k, src - 1 - k
+        ok &= (ys >= 0) & (buf[np.maximum(xs, 0)] == buf[np.maximum(ys, 0)])
+        b3 += ok
+    need = np.maximum(0, (_hibit(c) + 18 + 4) // 5 - lf)
+    lvl = np.where(isc, np.where(need <= b3, need, 4), 7)
+    t = lambda v: torch.from_numpy(np.asarray(v, np.int64))     # noqa: E731
+    return {"c": t(c), "lf": t(np.where(isc, lf, 0)), "lvl": t(lvl)}
+
+
+def next_kept_plain(tab: dict) -> torch.Tensor:
+    """The full kernel's next(): from an anchor ``s``, the first candidate
+    ``K >= s`` that the cost gate keeps (``lvl[K] <= min(3, K - s)``), and the
+    end of its match ``K + lf[K]``; -1 where none is left.  Repeat offsets
+    are not looked at (the rounds add them)."""
+    lvl, lf = tab["lvl"].numpy(), tab["lf"].numpy()
+    n = lvl.shape[0]
+    g = np.where(lvl <= 3, np.arange(n), n)
+    first = np.minimum.accumulate(g[::-1])[::-1] if n else g          # first G at or past x
+    out = np.full(n, -1, np.int64)
+    for s in range(n):
+        k = first[s]
+        while k < n and k - s < 3 and lvl[k] > k - s:
+            k = first[k + 1] if k + 1 < n else n
+        if k < n:
+            out[s] = k + lf[k]
+    return torch.from_numpy(out)
+
+
+def gated_chain_plain(row: bytes, size: int, tab: dict, cap_seq: int):
+    """The chain of kept sequences over the per-position table, from ``(scan,
+    anchor, r0, r1, r2) = (0, 0, 1, 4, 8)``: the next kept candidate is the
+    first one at or past the anchor that the gate keeps or whose offset is
+    on the repeat stack; its back extension (bounded by the anchor and
+    ``src2 > 0``) gives ``ll`` and ``ml``; the stack follows RFC 8878
+    3.1.1.5.  Returns ``([(anchor, K, ll, ml, ofv, stack after) ...], the
+    trailing literals' anchor)`` -- :func:`_walk`'s sequences."""
+    lvl, lf, c = (tab[k].tolist() for k in ("lvl", "lf", "c"))
+    mflimit = len(lvl)
+    out = []
+    s = 0
+    r0, r1, r2 = 1, 4, 8
+    while s < mflimit and len(out) < cap_seq:
+        k = s
+        while k < mflimit and not (lvl[k] != 7 and (lvl[k] <= min(3, k - s)
+                                                    or c[k] in (r0, r1, r2))):
+            k += 1
+        if k >= mflimit:
+            break
+        off = c[k]
+        nm2, src2 = k, k - off
+        while nm2 > s and src2 > 0 and row[nm2 - 1] == row[src2 - 1]:
+            nm2, src2 = nm2 - 1, src2 - 1
+        ll, ml = nm2 - s, k - nm2 + lf[k]
+        if ll > 0:
+            ofv = 1 if off == r0 else 2 if off == r1 else 3 if off == r2 else off + 3
+        else:
+            ofv = 1 if off == r1 else 2 if off == r2 else off + 3
+        keep = ll > 0 and ofv == 1
+        swap = (ll > 0 and ofv <= 2) or (ll == 0 and ofv == 1)
+        r0, r1, r2 = (r0 if keep else off), (r1 if keep else r0), (r2 if swap else r1)
+        out.append((s, k, ll, ml, ofv, (r0, r1, r2)))
+        s = k + lf[k]
+    return out, s
+
+
+def huf_offsets_plain(lits: bytes, hufpk: list) -> tuple[list, list]:
+    """Each literal's bit offset inside its Huffman stream (streams of
+    ``ceil(n / 4)`` literals, the last the rest, each written backward: a
+    literal's offset is the bits of the stream's literals after it, a suffix
+    sum), and each stream's bit count before its sentinel."""
+    n = len(lits)
+    per = (n + 3) >> 2
+    nb = np.array([hufpk[v] >> 12 for v in lits], np.int64)
+    offs, totals = np.zeros(n, np.int64), []
+    for k in range(4):
+        lo, hi = k * per, n if k == 3 else min(n, (k + 1) * per)
+        inc = np.cumsum(nb[lo:hi])
+        tot = int(inc[-1]) if inc.size else 0
+        offs[lo:hi] = tot - inc
+        totals.append(tot)
+    return offs.tolist(), totals
+
+
+def huf_streams_from_offsets(lits: bytes, hufpk: list, offs: list, totals: list) -> list:
+    """The four streams from :func:`huf_offsets_plain`: each code at its
+    offset, the sentinel bit after the stream's last bit, ``ceil((bits +
+    1) / 8)`` bytes a stream (:func:`_huf_streams`' bytes)."""
+    n = len(lits)
+    per = (n + 3) >> 2
+    out = []
+    for k in range(4):
+        lo, hi = k * per, n if k == 3 else min(n, (k + 1) * per)
+        acc = 1 << totals[k]
+        for i in range(lo, hi):
+            acc |= (hufpk[lits[i]] & 0xFFF) << offs[i]
+        out.append(acc.to_bytes((totals[k] + 1 + 7) >> 3, "little"))
+    return out
+
+
+def fse_states_plain(seqs: list, fse: list) -> list:
+    """The three FSE states (ll, ml, of) after each step, step b coding
+    sequence ``len(seqs) - 1 - b``: the first step takes the first slots,
+    each later one the encode table's next state at the one before."""
+    tab = lambda i: fse[min(max(i, 0), FSE_TT - 1)]     # noqa: E731
+    states = []
+    for b, (ll, ml, ofv) in enumerate(reversed(seqs)):
+        llc, mlc, ofr = _ll_code(ll), _ml_code(ml - 3), min(ofv.bit_length() - 1, 31)
+        if b == 0:
+            st = (tab(O2_LLF + llc), tab(O2_MLF + mlc), tab(O2_OFF + ofr))
+        else:
+            s_ll, s_ml, s_of = states[-1]
+            st = (tab(O2_LL + llc * 512 + s_ll) & 0x3FF, tab(O2_ML + mlc * 512 + s_ml) & 0x3FF,
+                  tab(O2_OF + ofr * 256 + s_of) & 0x3FF)
+        states.append(st)
+    return states
+
+
+def seq_stream_from_states_plain(seqs: list, fse: list, states: list) -> bytes:
+    """The sequences' bitstream from :func:`fse_states_plain`: every step's
+    fields (the OF, ML and LL transitions, each the low ``bits`` bits of the
+    state before it, then the LL, ML and OF extra bits) at offsets from a
+    prefix sum of their widths, then the final ML, OF and LL states and the
+    padding bit (:func:`_seq_stream`'s bytes)."""
+    tab = lambda i: fse[min(max(i, 0), FSE_TT - 1)]     # noqa: E731
+    vals, widths = [], []
+    for b, (ll, ml, ofv) in enumerate(reversed(seqs)):
+        llc, mlc, ofc = _ll_code(ll), _ml_code(ml - 3), ofv.bit_length() - 1
+        ofr = min(ofc, 31)
+        if b > 0:
+            s_ll, s_ml, s_of = states[b - 1]
+            for st, e in ((s_of, tab(O2_OF + ofr * 256 + s_of)),
+                          (s_ml, tab(O2_ML + mlc * 512 + s_ml)),
+                          (s_ll, tab(O2_LL + llc * 512 + s_ll))):
+                nb = (e >> 10) & 0xF
+                vals.append(st & ((1 << nb) - 1))
+                widths.append(nb)
+        llpk, mlpk = int(_LL_XTRA[llc]), int(_ML_XTRA[mlc])
+        vals += [ll - (llpk >> 8), ml - (mlpk >> 8), ofv - (1 << ofc)]
+        widths += [llpk & 0xFF, mlpk & 0xFF, ofc]
+    s_ll, s_ml, s_of = states[-1]
+    vals += [s_ml, s_of, s_ll, 1]
+    widths += [tab(O2_META + 1), tab(O2_META + 2), tab(O2_META), 1]
+    offs = np.cumsum([0] + widths[:-1]).tolist()
+    acc = 0
+    for v, w, o in zip(vals, widths, offs):
+        acc |= (v & ((1 << w) - 1)) << o
+    total = offs[-1] + widths[-1]
+    return acc.to_bytes((total + 7) >> 3, "little")
+
+
+def frame_from_parse_plain(row: bytes, size: int, chain: list, tail: int, meta: list,
+                           tree: bytes, fse: list, nc: bytes) -> bytes:
+    """One chunk's frame assembled as the full kernel assembles it, from
+    :func:`gated_chain_plain`'s sequences: the literals of each sequence and
+    the tail, the Huffman streams from :func:`huf_offsets_plain` (each
+    stream's bytes known before it is written), the sequence stream from
+    :func:`fse_states_plain`; the raw block when the frame is not shorter."""
+    parts = []
+    for s, k, ll, ml, ofv, _ in chain:
+        parts.append(row[s:s + ll])
+    lits = b"".join(parts) + row[tail:size]
+    seqs = [(ll, ml, ofv) for _, _, ll, ml, ofv, _ in chain]
+    n_lit, tree_b = len(lits), meta[256]
+    lit_sec = None
+    if meta[257] > 0 and n_lit >= 64:
+        offs, totals = huf_offsets_plain(lits, meta[:256])
+        sb = [(t + 1 + 7) >> 3 for t in totals]
+        csize = tree_b + 6 + sum(sb)
+        if 5 + csize < 3 + n_lit:
+            streams = huf_streams_from_offsets(lits, meta[:256], offs, totals)
+            w = 2 | (3 << 2) | ((n_lit & 0x3FFFF) << 4) | ((csize & 0x3FF) << 22)
+            lit_sec = (w.to_bytes(4, "little") + bytes([(csize >> 10) & 0xFF]) + tree[:tree_b]
+                       + b"".join((b & 0xFFFF).to_bytes(2, "little") for b in sb[:3])
+                       + b"".join(streams))
+    if lit_sec is None:
+        lit_sec = bytes([(3 << 2) | ((n_lit & 0xF) << 4), (n_lit >> 4) & 0xFF,
+                         (n_lit >> 12) & 0xFF]) + lits
+    if seqs:
+        nc_len = min(fse[O2_META + 4], NC_CAP)
+        seq_sec = (bytes([128 + (len(seqs) >> 8), len(seqs) & 0xFF, fse[O2_META + 3] & 0xFF])
+                   + nc[:nc_len]
+                   + seq_stream_from_states_plain(seqs, fse, fse_states_plain(seqs, fse)))
+    else:
+        seq_sec = b"\x00"
+    body = lit_sec + seq_sec
+    if len(body) >= size:                               # a raw block is no longer
+        bh, body = 1 | (size << 3), row[:size]
+    else:
+        bh = 1 | (2 << 1) | (len(body) << 3)
+    wl = 10 if size <= 1024 else max(max(size - 1, 1).bit_length(), 10)
+    return (bytes([0x28, 0xB5, 0x2F, 0xFD, 0x80, ((wl - 10) << 3) & 0xFF])
+            + (size & 0xFFFFFFFF).to_bytes(4, "little") + (bh & 0xFFFFFF).to_bytes(3, "little")
+            + body)
+
+
 def _cap_seq(cap: int) -> int:
     """Sequence slots: every sequence covers at least MIN_MATCH bytes."""
     return cap // 4 + 8
@@ -450,9 +732,22 @@ def _inputs(data, sizes, cands) -> list:
         raise ValueError(f"the Zstandard encode kernel supports cap <= {MAX_CAP}")
     cands = [_int32(name, t, (B, cap), data.device)
              for name, t in zip(("cand", "cand8", "nxt"), cands)]
-    const = torch.from_numpy(CONST).to(data.device)
+    const = _const_on(data.device)
     return [data.contiguous(), _clamped_sizes(data, sizes).contiguous(), *cands, B, cap,
             _cap_seq(cap), const]
+
+
+@functools.cache
+def _const_on(device) -> torch.Tensor:
+    """CONST on ``device``, copied once: a copy from pageable host memory
+    waits for the stream, which would stall the card at every call."""
+    return torch.from_numpy(CONST).to(device)
+
+
+@functools.cache
+def _scratch_words() -> int:
+    """The parse's scratch a chunk, in int32 words (``csrc/zstd_encode.cu``)."""
+    return _build.load("zstd_encode").tpucomp_zstd_encode_scratch_words()
 
 
 def _call(mode: str, argtypes: list, args: list, device) -> None:
@@ -468,22 +763,28 @@ def _call(mode: str, argtypes: list, args: list, device) -> None:
         raise RuntimeError(f"zstd_encode ({mode}) kernel launch failed: cudaError {rc}")
 
 
-def hist_kernel(data, sizes, cands):
+def hist_kernel(data, sizes, cands, steps=None):
     """Launch the ``hist`` walk of ``csrc/zstd_encode.cu`` over ``cands``
     (``match.candidates2``'s three tensors) on ``data``'s card, on the
-    current stream -> ``(freq int32[B, 256], sch int32[B, 121])``."""
+    current stream -> ``(freq int32[B, 256], sch int32[B, 121])``; each
+    chunk's walk steps (candidates visited) go to ``steps int32[B]`` when
+    it is given, for :func:`full_kernel`."""
     args = _inputs(data, sizes, cands)
     B, dev = data.shape[0], data.device
     freq = torch.empty((B, 256), dtype=torch.int32, device=dev)
     sch = torch.empty((B, 121), dtype=torch.int32, device=dev)
-    _call("hist", [_P, _P], args + [freq, sch], dev)
+    if steps is not None:
+        steps = _int32("steps", steps, (B,), dev)
+    _call("hist", [_P, _P, _P], args + [freq, sch, steps], dev)
     hist_kernel.launches += 1
     return freq, sch
 
 
-def full_kernel(data, sizes, cands, meta, tree, fse_tab, nc, out_cap: int):
-    """Launch the ``full`` walk against the tables of :func:`huf_meta` and
-    :func:`seq_tables` (or :func:`speed_tables`)."""
+def full_kernel(data, sizes, cands, meta, tree, fse_tab, nc, out_cap: int, steps=None):
+    """Launch ``full`` against the tables of :func:`huf_meta` and
+    :func:`seq_tables` (or :func:`speed_tables`): the walk takes the chunks
+    whose ``hist`` walk took at most :data:`WALK_BUDGET` steps (``steps``
+    from :func:`hist_kernel`; none without it), the gated parse the others."""
     args = _inputs(data, sizes, cands)
     B, cap = data.shape
     dev = data.device
@@ -495,12 +796,16 @@ def full_kernel(data, sizes, cands, meta, tree, fse_tab, nc, out_cap: int):
               _int32("fse_tab", fse_tab, (B, FSE_TT), dev), nc.contiguous()]
     cap_seq = _cap_seq(cap)
     seqs = torch.empty((B, 2 * cap_seq), dtype=torch.int32, device=dev)
+    # the parse's per-position table and sequence records a chunk
+    scratch = torch.empty((B, _scratch_words()), dtype=torch.int32, device=dev)
+    if steps is not None:
+        steps = _int32("steps", steps, (B,), dev)
     lits = torch.empty((B, max(cap, 1)), dtype=torch.uint8, device=dev)
     out = torch.empty((B, out_cap), dtype=torch.uint8, device=dev)
     osz = torch.empty((B,), dtype=torch.int32, device=dev)
     stat = torch.empty((B,), dtype=torch.int32, device=dev)
-    _call("full", [_P] * 6 + [_P, _I, _P, _P],
-          args + tables + [seqs, lits, out, out_cap, osz, stat], dev)
+    _call("full", [_P] * 8 + [_I, _P, _I, _P, _P],
+          args + tables + [seqs, lits, scratch, steps, WALK_BUDGET, out, out_cap, osz, stat], dev)
     full_kernel.launches += 1
     return out, osz, stat
 
@@ -526,14 +831,16 @@ def compress_batch(data: torch.Tensor, sizes: torch.Tensor, out_cap: int,
     _check_cap(data)
     sizes = _clamped_sizes(data, sizes)
     cands = match.candidates2(data, sizes, window=MAX_CAP)
+    steps = None
     if exact_entropy:
-        freq, sch = hist_kernel(data, sizes, cands)
+        steps = torch.empty((data.shape[0],), dtype=torch.int32, device=data.device)
+        freq, sch = hist_kernel(data, sizes, cands, steps)
         fse_tab, nc = seq_tables(sch)
     else:
         freq = whole_chunk_hist(data, sizes)
         fse_tab, nc = speed_tables(data.shape[0], data.device)
     meta, tree = huf_meta(freq)
-    return full_kernel(data, sizes, cands, meta, tree, fse_tab, nc, out_cap)
+    return full_kernel(data, sizes, cands, meta, tree, fse_tab, nc, out_cap, steps)
 
 
 def compress_batch_plain(data: torch.Tensor, sizes: torch.Tensor, out_cap: int,
