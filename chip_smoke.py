@@ -45,9 +45,9 @@ exit code and no result line:
    on the head chunks, the edge inputs of tests/test_pallas_zstd.py and its
    64 KiB sequence-heavy chunk, in exact entropy at two out_caps and in the
    speed rung, with its tables on the card against the CPU, and full (the
-   gated parse alone, and with the walk taking the chunks of few hist
-   steps) on the chunks of tests/zstd_walk_stress.py and mixed's 64 KiB
-   chunks 850 and 1000; Deflate's emit kernel also on
+   gated parse) on the chunks of tests/zstd_walk_stress.py and mixed's
+   64 KiB chunks 850 and 1000, also repeated past the card's SM count (a
+   CTA's scratch row reused); Deflate's emit kernel also on
    tests/gdeflate_walk_stress.py's chunks with 32 KiB candidates and those
    two mixed chunks, algos 1 and 2, at two out_caps; for GDeflate,
    the hist and fixed/emit walks and the whole encode in algos 0/1/2 on the
@@ -857,32 +857,36 @@ def main() -> int:
     # initial offset 8, keeps through back extension alone, sequences
     # without literals, a 65,532-byte match, ends around mflimit, sizes 0-8,
     # 65535, 65536, a literal-only row) and mixed's chunks 850 and 1000, in
-    # both rungs and at a small out_cap: the gated parse on every chunk
-    # (steps None) and with the walk taking the chunks whose hist walk took
-    # at most WALK_BUDGET steps (steps from the hist kernel on the card)
+    # both rungs and at a small out_cap; then the same rows repeated past the
+    # card's SM count, so that a CTA takes several chunks through one
+    # scratch row (the plain frames repeated alike)
     zws_rows = zws.rows() + mixed_tail
     zs = ChunkBatch.from_chunks([c for _, c in zws_rows], CHUNK, device="cpu")
     zs_c = zws.candidates(zs, [n for n, _ in zws_rows])
-    zs_steps = torch.empty(zs.num_chunks, dtype=torch.int32, device=dev)
-    zstd_encode.hist_kernel(zs.data.to(dev), zs.sizes.to(dev), [c.to(dev) for c in zs_c],
-                            zs_steps)
     zf, zsc = zstd_encode.hist_plain(zs.data, zs.sizes, zs_c)
     zs_rungs = {"exact entropy": (zf, zstd_encode.seq_tables(zsc)),
                 "speed rung": (zstd_encode.whole_chunk_hist(zs.data, zs.sizes),
                                zstd_encode.speed_tables(zs.num_chunks, "cpu"))}
-    walked = int((zs_steps <= zstd_encode.WALK_BUDGET).sum())
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    rep_idx = torch.arange(n_sm + zs.num_chunks + 1) % zs.num_chunks
     for rung, (freq, (fse_tab, nc)) in zs_rungs.items():
         meta, tree = zstd_encode.huf_meta(freq)
         for cap in ((zcap, 2048) if rung == "exact entropy" else (zcap,)):
-            for steps in (None, zs_steps):
-                how = "parse only" if steps is None else f"walk on {walked} chunks"
-                compare("zstd_encode",
-                        lambda d, s, a, b, n, *r, st=steps: zstd_encode.full_kernel(
-                            d, s, (a, b, n), *r, steps=st),
-                        lambda d, s, a, b, n, *r: zstd_encode.full_plain(d, s, (a, b, n), *r),
-                        (zs.data, zs.sizes, *zs_c, meta, tree, fse_tab, nc, cap),
-                        f"{zs.num_chunks} zstd walk stress chunks and mixed 850, 1000, {rung}, "
-                        f"out_cap {cap}, {how}")
+            zin = (zs.data, zs.sizes, *zs_c, meta, tree, fse_tab, nc)
+            want = compare("zstd_encode",
+                           lambda d, s, a, b, n, *r: zstd_encode.full_kernel(d, s, (a, b, n), *r),
+                           lambda d, s, a, b, n, *r: zstd_encode.full_plain(d, s, (a, b, n), *r),
+                           zin + (cap,),
+                           f"{zs.num_chunks} zstd walk stress chunks and mixed 850, 1000, {rung}, "
+                           f"out_cap {cap}")
+            got = zstd_encode.full_kernel(*[x[rep_idx].to(dev) for x in zin[:2]],
+                                          [x[rep_idx].to(dev) for x in zin[2:5]],
+                                          *[x[rep_idx].to(dev) for x in zin[5:]], cap)
+            same = all(torch.equal(g.cpu(), w[rep_idx].cpu()) for g, w in zip(got, want))
+            check(same, f"zstd_encode on {len(rep_idx)} repeated stress chunks ({rung}, out_cap "
+                        f"{cap}) differs from its plain frames")
+            print(f"[kernel=plain] zstd_encode: {len(rep_idx)} stress chunks repeated past "
+                  f"{n_sm} SMs, {rung}, out_cap {cap}")
 
     lap("3 lz4, snappy, deflate, zstd")
 
@@ -1737,28 +1741,22 @@ def main() -> int:
             check(all(pool.map(libzstd_reads, zip(comp.chunk_list(), cb.chunk_list()))),
                   f"{name} zstd compress ({rung}): libzstd does not read the port's frames back")
         cands = match.candidates2(cb.data, sizes, window=zwin)
-        steps = torch.empty(B, dtype=torch.int32, device=dev)
-        freq, sch = zstd_encode.hist_kernel(cb.data, sizes, cands, steps)
+        freq, sch = zstd_encode.hist_kernel(cb.data, sizes, cands)
 
         def tables():
             return zstd_encode.seq_tables(sch) + zstd_encode.huf_meta(freq)
 
         fse_tab, nc, meta, tree = tables()
-        # row 21 as compress_batch calls it (the walk on the chunks whose hist
-        # walk took at most WALK_BUDGET steps), the parse alone, the speed rung
+        # row 21 in exact entropy (as compress_batch calls it) and in the speed rung
         t_full = time_ms(torch, lambda: zstd_encode.full_kernel(cb.data, sizes, cands, meta, tree,
-                                                                fse_tab, nc, zcap, steps))
+                                                                fse_tab, nc, zcap))
         smeta, stree = zstd_encode.huf_meta(zstd_encode.whole_chunk_hist(cb.data, sizes))
         sfse, snc = zstd_encode.speed_tables(B, dev)
         row21[name] = {
             "full_ms": t_full,
-            "parse_only_ms": time_ms(torch, lambda: zstd_encode.full_kernel(
-                cb.data, sizes, cands, meta, tree, fse_tab, nc, zcap)),
             "speed_rung_ms": time_ms(torch, lambda: zstd_encode.full_kernel(
-                cb.data, sizes, cands, smeta, stree, sfse, snc, zcap)),
-            "walked_chunks": int((steps <= zstd_encode.WALK_BUDGET).sum()),
-            "steps_max": int(steps.max())}
-        t_hist = time_ms(torch, lambda: zstd_encode.hist_kernel(cb.data, sizes, cands, steps))
+                cb.data, sizes, cands, smeta, stree, sfse, snc, zcap))}
+        t_hist = time_ms(torch, lambda: zstd_encode.hist_kernel(cb.data, sizes, cands))
         nseq = int(sch[:, :36].sum())
         kernel_ms["zstd_encode_hist"] += t_hist
         kernel_ms["zstd_encode"] += t_full
@@ -1791,8 +1789,7 @@ def main() -> int:
     print(f"[row12] Deflate emit kernel ms a corpus of 1024 x 64 KiB (mean of {ITERS} calls): "
           f"{json.dumps(row12)}")
     print(f"[row21] Zstandard full kernel ms a corpus of 1024 x 64 KiB (mean of {ITERS} calls; "
-          f"the walk takes chunks of at most {zstd_encode.WALK_BUDGET} hist steps): "
-          f"{json.dumps(row21)}")
+          f"exact entropy and the speed rung): {json.dumps(row21)}")
     lap("4 checks and timings, lz4 to zstd")
     row17 = {}   # corpus -> row 17's ms: fixed (algo 0), emit (algos 1 and 2)
     for (name, algo), (comp, cst, dec, dst) in gresults.items():

@@ -600,19 +600,17 @@ def test_deflate_emit_parse_equals_plain_on_stress_rows(card, algo, out_cap):
     assert _equal(got, want)
 
 
-@pytest.mark.parametrize("walk", ["parse only", "walk by steps"])
+@pytest.mark.parametrize("batch", ["as is", "past the SM count"])
 @pytest.mark.parametrize("rung,out_cap", [("exact", "bound"), ("exact", 2048),
                                           ("speed", "bound")])
-def test_zstd_full_parse_equals_plain_on_stress_rows(card, rung, out_cap, walk):
+def test_zstd_full_parse_equals_plain_on_stress_rows(card, rung, out_cap, batch):
     """Row 21 on ``tests/zstd_walk_stress.py``'s rows (repeat-only keeps,
     the initial offset 8, keeps through back extension alone, sequences
     without literals, a 65,532-byte match, sizes 0-8, 65535, 65536, a
-    literal-only row): the gated parse on every chunk (no step counts), and
-    with the walk taking the chunks whose hist walk took at most
-    ``WALK_BUDGET`` steps (the counts from the hist kernel on the card)."""
+    literal-only row), as they are and repeated past the card's SM count,
+    so that a CTA parses several chunks through one scratch row."""
     cb, names = zws.batch()
     cands = zws.candidates(cb, names)
-    gc = [c.to(card) for c in cands]
     if rung == "exact":
         freq, sch = zstd_encode.hist_plain(cb.data, cb.sizes, cands)
         fse_tab, nc = zstd_encode.seq_tables(sch)
@@ -621,15 +619,15 @@ def test_zstd_full_parse_equals_plain_on_stress_rows(card, rung, out_cap, walk):
         fse_tab, nc = zstd_encode.speed_tables(cb.num_chunks, "cpu")
     meta, tree = zstd_encode.huf_meta(freq)
     cap = fzstd.max_compressed_chunk_size(zws.CAP) if out_cap == "bound" else out_cap
-    steps = None
-    if walk == "walk by steps":
-        steps = torch.empty(cb.num_chunks, dtype=torch.int32, device=card)
-        zstd_encode.hist_kernel(cb.data.to(card), cb.sizes.to(card), gc, steps)
-        assert 0 < int((steps <= zstd_encode.WALK_BUDGET).sum()) < cb.num_chunks
-    got = zstd_encode.full_kernel(cb.data.to(card), cb.sizes.to(card), gc, meta.to(card),
-                                  tree.to(card), fse_tab.to(card), nc.to(card), cap, steps)
     want = zstd_encode.full_plain(cb.data, cb.sizes, cands, meta, tree, fse_tab, nc, cap)
-    assert _equal(got, want)
+    idx = torch.arange(cb.num_chunks)
+    if batch == "past the SM count":
+        n_sm = torch.cuda.get_device_properties(card).multi_processor_count
+        idx = torch.arange(n_sm + cb.num_chunks + 1) % cb.num_chunks
+    on = lambda t: t[idx].to(card)      # noqa: E731
+    got = zstd_encode.full_kernel(on(cb.data), on(cb.sizes), [on(c) for c in cands], on(meta),
+                                  on(tree), on(fse_tab), on(nc), cap)
+    assert _equal(got, tuple(w[idx] for w in want))
 
 
 @pytest.mark.parametrize("algo", [0, 1, 2])

@@ -2,7 +2,7 @@
 
 The ``fixed`` and ``emit`` kernels of ``csrc/gdeflate_encode.cu`` do not walk
 a chunk's tokens one by one: they compute every position's next token at
-once (plain version ``gdeflate_encode.next_tokens_plain``), follow the chain
+once (plain version ``lz_parse.next_tokens_plain``), follow the chain
 of next tokens from 0 and number the tokens (``path_plain``), and code and
 pack the tokens at once (``lanes_from_path_plain``).  Here those pieces are
 held against the serial walk ``deflate_encode._walk`` (its tokens) and the
@@ -22,7 +22,7 @@ from tpucomp_torch.chunk import ChunkBatch
 from tpucomp_torch.constants import Status
 from tpucomp_torch.formats import gdeflate as fgdeflate
 from tpucomp_torch.ops import match
-from tpucomp_torch.ops.cuda import gdeflate_encode as ge
+from tpucomp_torch.ops.cuda import gdeflate_encode as ge, lz_parse
 from tpucomp_torch.ops.cuda.deflate_encode import _walk
 from tpucomp_torch.utils import synth
 
@@ -44,8 +44,8 @@ def _parsed(cb, names, cands) -> dict:
     toks, paths, walks = [], [], []
     for i in range(cb.num_chunks):
         size = int(cb.sizes[i])
-        toks.append(ge.next_tokens_plain(cb.data[i], size, cands[0][i], cands[1][i]))
-        paths.append(ge.path_plain(toks[-1], size))
+        toks.append(lz_parse.next_tokens_plain(cb.data[i], size, cands[0][i], cands[1][i]))
+        paths.append(lz_parse.path_plain(toks[-1], size))
         walks.append(_walk(cb.data[i].numpy().tobytes(), size, cands[0][i].tolist(),
                            cands[1][i].tolist(), cands[2][i].tolist()))
     return {"cb": cb, "names": names, "cands": cands, "toks": toks, "paths": paths,
@@ -203,9 +203,9 @@ def test_small_sizes_have_no_chain(stress):
     cb, names, cands = stress["cb"], stress["names"], stress["cands"]
     for n in range(9):
         i = names.index(f"size_{n}")
-        tok = ge.next_tokens_plain(cb.data[i], n, cands[0][i], cands[1][i])
+        tok = lz_parse.next_tokens_plain(cb.data[i], n, cands[0][i], cands[1][i])
         assert tok["next"].numel() == max(n - 3, 0)
-        matches, _, tokens = ge.path_plain(tok, n)
+        matches, _, tokens = lz_parse.path_plain(tok, n)
         assert len(matches) == (1 if n >= 6 else 0) and tokens == n - sum(
             ml - 1 for _, _, ml, _ in matches)
 

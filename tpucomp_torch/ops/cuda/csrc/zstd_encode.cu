@@ -1,6 +1,6 @@
-// Batched Zstandard encode: the token walk, one warp per chunk, in two modes
-// (hist, full) of one kernel body, and the gated parse, one CTA of 1024
-// threads a chunk, which takes full's chunks whose walk is long.
+// Batched Zstandard encode in two kernels that see the same sequences: the
+// hist walk, one warp per chunk, and the full kernel, a gated parse, one CTA
+// of 1024 threads a chunk.
 //
 // Replaces the TPU kernel tpucomp/ops/pallas/zstd_encode.py::_kernel in its
 // two trace-time modes: "hist" (called by compress_batch at
@@ -9,8 +9,7 @@
 // candidate pass (tpucomp_torch/ops/match.py::candidates2 with the 64 KiB
 // window), which gives for every position the nearest previous 4-byte match
 // `cand`, an 8-byte-prefix sort neighbour `cand8`, and `nxt`, the next
-// position that has either.  The walk is the same in both modes, so hist and
-// full see the same sequences:
+// position that has either.  The walk, which the parse reproduces:
 //
 //   nm = nxt[scan]; stop at nm >= mflimit = size - 3 or a full sequence buffer
 //   extend cand and cand8 forward, at most size - (nm + 4) bytes; keep the
@@ -27,51 +26,41 @@
 //  * hist: the literal bytes' histogram into int32[B, 256] and the kept
 //    sequences' LL/ML/OF code counts into int32[B, 121] (LL at 0, ML at 36,
 //    OF at 89); no output row.
-//  * full: the literals go to a scratch row and the sequences (ll | (ml - 3)
-//    << 16, offset value) to a scratch list, both in device memory; then one
-//    complete frame: header (magic, FHD 0x80, window byte, 4-byte content
-//    size, block header); the literal section, 4-stream Huffman (Size_Format
-//    3, the tree description given, a 6-byte jump table, each stream written
-//    backward with a 1-bit sentinel) when huf_ok, n_lit >= 64 and 5 + csize
-//    < 3 + n_lit, else raw (a 3-byte header with a 20-bit size); the
-//    sequence count (2-byte form), the symbol compression modes byte, the
-//    custom tables' descriptions and the backward FSE bitstream: the last
-//    sequence sets the three states; every earlier one appends the OF, ML
-//    and LL transitions (fse_tab packs state | nb << 10 | base << 14, LL and
-//    ML 512 columns, OF 256), then every sequence its LL, ML and OF extra
-//    bits; then the ML, OF and LL states and the padding bit.  A frame not
-//    shorter than 13 + size bytes is rewritten as one raw block.
-// The streams are LSB first; a 64-bit accumulator writes 4 bytes whenever
-// it holds 32 bits and ceil(bits / 8) bytes at the end, the same bytes as the
-// TPU kernel's (lo, hi, nbits) triple.  A frame longer than out_cap ends as
+//  * full: one complete frame: header (magic, FHD 0x80, window byte, 4-byte
+//    content size, block header); the literal section, 4-stream Huffman
+//    (Size_Format 3, the tree description given, a 6-byte jump table, each
+//    stream written backward with a 1-bit sentinel) when huf_ok, n_lit >= 64
+//    and 5 + csize < 3 + n_lit, else raw (a 3-byte header with a 20-bit
+//    size); the sequence count (2-byte form), the symbol compression modes
+//    byte, the custom tables' descriptions and the backward FSE bitstream:
+//    the last sequence sets the three states; every earlier one appends the
+//    OF, ML and LL transitions (fse_tab packs state | nb << 10 | base << 14,
+//    LL and ML 512 columns, OF 256), then every sequence its LL, ML and OF
+//    extra bits; then the ML, OF and LL states and the padding bit.  A frame
+//    not shorter than 13 + size bytes is rewritten as one raw block.
+// The streams are LSB first, the same bytes as the TPU kernel's (lo, hi,
+// nbits) triple.  A frame longer than out_cap ends as
 // OUTPUT_BUFFER_TOO_SMALL with size 0: the TPU kernel writes into a row of
 // max(out_cap, 16 + cap + 64 + 11 cap / 8 + 9 cap_seq + 192) bytes (its
 // Huffman streams in a scratch region past the literals, then moved down)
-// and drops the excess; here each stream's byte count is known before it is
-// written (the sum of its code lengths), so the streams go straight to their
-// place, and bytes at or past out_cap are counted, never stored.  The TPU
-// kernel's 4096-byte slabs over a second grid dimension only pipeline the
-// candidate arrays through SMEM: a match that runs past a slab resumes in
-// the next, and a walk that stops ends every later slab, so here the walk is
-// one loop over the chunk.
+// and drops the excess; here the frame's length is known before a byte of
+// it is written, so the streams go straight to their place, or not at all.
+// The TPU kernel's 4096-byte slabs over a second grid dimension only
+// pipeline the candidate arrays through SMEM: a match that runs past a slab
+// resumes in the next, and a walk that stops ends every later slab, so here
+// the walk is one loop over the chunk.
 //
 // Bound: bytes.  A call must read each input byte once and write each output
 // byte once (B x out_cap, the zero tail included; hist writes B x 377
-// counts); it reads the candidate arrays only where the walk lands, and the
-// full walk reads fse_tab (216 KB a chunk) only at the sequences' states.
-// The walk is latency-bound: a chunk costs its steps (candidates visited),
-// up to 24k on mixed's literal-heavy chunks, each two forward extensions
-// from global memory.  So full walks only the chunks whose hist walk took
-// at most `budget` steps (hist counts them) and the parse, below, takes the
-// others (all of them when no counts are given).
+// counts); hist reads the candidate arrays only where the walk lands, full
+// reads cand and cand8 in full and fse_tab (216 KB a chunk) only in the
+// columns its sequences use.  The hist walk is latency-bound: a chunk costs
+// its steps (candidates visited), up to 24k on mixed's literal-heavy chunks,
+// each two forward extensions from global memory.
 // Design of the walk: a warp per chunk, all lanes carrying the same walk state
-// (broadcast loads, uniform branches), lane 0 storing the header and the
-// sequence bitstream; forward extension compares 32 bytes a step with a
-// ballot (warp_match_len); literal copies, the tree, the raw rewrite and the
-// zero tail use the whole warp; lanes 0-3 write the four Huffman streams at
-// once.  The histograms (hist) and the Huffman codes (full) live in the
-// warp's shared memory.  The kernel writes every byte of the output row, so
-// the caller's buffer needs no clearing.
+// (broadcast loads, uniform branches); forward extension compares 32 bytes a
+// step with a ballot (warp_match_len); the histograms live in the warp's
+// shared memory.
 
 #include <cstdint>
 
@@ -102,8 +91,6 @@ constexpr int kTreeCap = 176;
 constexpr int kHufMeta = 258;
 constexpr int kHist = 256 + 121;
 
-enum Mode { kHistMode = 0, kFullMode = 1 };
-
 // floor(log2 v) for v >= 1
 __device__ __forceinline__ int hibit(int v) { return 31 - __clz(v); }
 
@@ -115,74 +102,12 @@ __device__ __forceinline__ int ml_code(const int32_t* cst, int mlv) {
   return mlv < 128 ? cst[kOMLC + mlv] : 36 + hibit(max(mlv, 1));
 }
 
-// The LSB-first bit stream into one output row; every lane holds the same
-// state, lane 0 stores (through OutRow, which drops stores past the row).
-struct BitOut {
-  tpucomp::OutRow w;
-  int op;
-  uint64_t acc;
-  int nb;
-  __device__ __forceinline__ void put(uint32_t v, int n) {
-    acc |= static_cast<uint64_t>(v) << nb;
-    nb += n;
-    if (nb >= 32) {
-      for (int k = 0; k < 4; ++k) w.put(op + k, static_cast<int>((acc >> (8 * k)) & 0xFF));
-      op += 4;
-      acc >>= 32;
-      nb -= 32;
-    }
-  }
-  __device__ __forceinline__ void flush() {
-    for (; nb > 0; nb = max(nb - 8, 0)) {
-      w.put(op++, static_cast<int>(acc & 0xFF));
-      acc >>= 8;
-    }
-  }
-};
-
-// One lane's own bit stream (a Huffman literal stream): the same bytes as
-// BitOut, stored by the lane that owns it.
-struct LaneBits {
-  uint8_t* p;
-  int cap;
-  int op;
-  uint64_t acc;
-  int nb;
-  __device__ __forceinline__ void byte(int v) {
-    if (op < cap) p[op] = static_cast<uint8_t>(v);
-    ++op;
-  }
-  __device__ __forceinline__ void put(uint32_t v, int n) {
-    acc |= static_cast<uint64_t>(v) << nb;
-    nb += n;
-    if (nb >= 32) {
-      for (int k = 0; k < 4; ++k) byte(static_cast<int>((acc >> (8 * k)) & 0xFF));
-      acc >>= 32;
-      nb -= 32;
-    }
-  }
-  __device__ __forceinline__ void flush() {
-    for (; nb > 0; nb = max(nb - 8, 0)) {
-      byte(static_cast<int>(acc & 0xFF));
-      acc >>= 8;
-    }
-  }
-};
-
-__device__ __forceinline__ int warp_sum(int v) { return __reduce_add_sync(tpucomp::kFullMask, v); }
-
-template <int M>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-zstd_encode_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__ sizes,
-                   const int32_t* __restrict__ cand, const int32_t* __restrict__ cand8,
-                   const int32_t* __restrict__ nxt, int batch, int cap, int cap_seq,
-                   const int32_t* __restrict__ cst, const int32_t* __restrict__ huf_meta,
-                   const uint8_t* __restrict__ tree, const int32_t* __restrict__ fse_tab,
-                   const uint8_t* __restrict__ nc, int32_t* __restrict__ seq_scratch,
-                   uint8_t* __restrict__ lit_scratch, int32_t* __restrict__ freq_out,
-                   int32_t* __restrict__ sch_out, uint8_t* __restrict__ out, int out_cap,
-                   int32_t* __restrict__ out_sizes, int32_t* __restrict__ statuses,
-                   int32_t* __restrict__ steps_io, int budget) {
+zstd_hist_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__ sizes,
+                 const int32_t* __restrict__ cand, const int32_t* __restrict__ cand8,
+                 const int32_t* __restrict__ nxt, int batch, int cap, int cap_seq,
+                 const int32_t* __restrict__ cst, int32_t* __restrict__ freq_out,
+                 int32_t* __restrict__ sch_out) {
   __shared__ int32_t s_tab[kWarpsPerBlock][kHist];
   const int wi = threadIdx.x / 32;
   const int chunk = blockIdx.x * kWarpsPerBlock + wi;
@@ -191,30 +116,18 @@ zstd_encode_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__
   const size_t row = static_cast<size_t>(chunk) * cap;
   const uint8_t* in = data + row;
   const int size = min(max(sizes[chunk], 0), cap);
-  int32_t* t = s_tab[wi];  // hist: byte counts, then code counts; full: the Huffman codes
-  for (int i = lane; i < kHist; i += 32)
-    t[i] = M == kFullMode ? (i < 256 ? huf_meta[static_cast<size_t>(chunk) * kHufMeta + i] : 0)
-                          : 0;
+  int32_t* t = s_tab[wi];  // byte counts, then code counts
+  for (int i = lane; i < kHist; i += 32) t[i] = 0;
   __syncwarp();
-  // full: the sequences (ll | (ml - 3) << 16, then the offset values) and the literals
-  int32_t* seqa = M == kFullMode ? seq_scratch + static_cast<size_t>(chunk) * 2 * cap_seq : nullptr;
-  int32_t* seqb = M == kFullMode ? seqa + cap_seq : nullptr;
-  uint8_t* lit = M == kFullMode ? lit_scratch + row : nullptr;
 
   // ---- the walk ----
   const int32_t* c4 = cand + row;
   const int32_t* c8 = cand8 + row;
   const int32_t* nx = nxt + row;
   const int mflimit = size - kMinMatch + 1;
-  int anchor = 0, scan = 0, litcnt = 0, nseq = 0;
+  int anchor = 0, scan = 0, nseq = 0;
   int r0 = 1, r1 = 4, r2 = 8;  // the repeat-offset stack, RFC 8878's initial values
-  // hist counts its steps (candidates visited) into steps_io when given;
-  // full takes only the chunks whose count is at most `budget`, the parse
-  // (zstd_full_kernel) the others
-  if (M == kFullMode && (steps_io == nullptr || steps_io[chunk] > budget)) return;
-  int steps = 0;
   while (scan < mflimit) {
-    ++steps;
     const int nm = nx[scan];
     if (nm >= mflimit || nseq >= cap_seq) break;  // the rest is literal
     const int c4p = c4[nm], c8p = c8[nm];
@@ -239,11 +152,7 @@ zstd_encode_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__
       scan = nm + 1;
       continue;
     }
-    if (M == kHistMode) {
-      for (int i = anchor + lane; i < nm2; i += 32) atomicAdd(&t[in[i]], 1);
-    } else {
-      tpucomp::warp_copy(lit + litcnt, in + anchor, ll, lane);
-    }
+    for (int i = anchor + lane; i < nm2; i += 32) atomicAdd(&t[in[i]], 1);
     const bool with_lit = ll > 0;
     const int ofv = with_lit ? (c == r0 ? 1 : c == r1 ? 2 : c == r2 ? 3 : c + 3)
                              : (c == r1 ? 1 : c == r2 ? 2 : c + 3);
@@ -252,179 +161,21 @@ zstd_encode_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__
     const int n0 = keep ? r0 : c, n1 = keep ? r1 : r0, n2 = swap ? r2 : r1;
     r0 = n0, r1 = n1, r2 = n2;
     if (lane == 0) {
-      if (M == kHistMode) {
-        ++t[256 + ll_code(cst, ll)];
-        ++t[256 + 36 + ml_code(cst, ml - 3)];
-        ++t[256 + 89 + min(hibit(ofv), 31)];
-      } else {
-        seqa[nseq] = static_cast<int32_t>(static_cast<uint32_t>(ll) |
-                                          (static_cast<uint32_t>(ml - 3) << 16));
-        seqb[nseq] = ofv;
-      }
+      ++t[256 + ll_code(cst, ll)];
+      ++t[256 + 36 + ml_code(cst, ml - 3)];
+      ++t[256 + 89 + min(hibit(ofv), 31)];
     }
     ++nseq;
-    litcnt += ll;
     anchor = scan = nm2 + ml;
   }
 
-  if (M == kHistMode) {
-    if (steps_io != nullptr && lane == 0) steps_io[chunk] = steps;
-    for (int i = anchor + lane; i < size; i += 32) atomicAdd(&t[in[i]], 1);
-    __syncwarp();
-    for (int i = lane; i < kHist; i += 32) {
-      if (i < 256)
-        freq_out[static_cast<size_t>(chunk) * 256 + i] = t[i];
-      else
-        sch_out[static_cast<size_t>(chunk) * 121 + i - 256] = t[i];
-    }
-    return;
-  }
-
-  // ---- full: the literal section ----
-  tpucomp::warp_copy(lit + litcnt, in + anchor, size - anchor, lane);
-  __syncwarp();  // lane 0's sequence stores land before lane 0 reads them all back
-  const int n_lit = litcnt + size - anchor;
-  const int32_t* meta = huf_meta + static_cast<size_t>(chunk) * kHufMeta;
-  const int tree_b = meta[256];
-  uint8_t* orow = out + static_cast<size_t>(chunk) * out_cap;
-  const tpucomp::OutRow w{orow, out_cap, lane};
-  bool use_huf = false;
-  int sb[4] = {0, 0, 0, 0};
-  const int per = (n_lit + 3) >> 2;
-  if (meta[257] > 0 && n_lit >= 64) {
-    int s_total = 0;
-    for (int k = 0; k < 4; ++k) {  // each stream's bytes: its code lengths and the sentinel
-      const int lo = k * per, hi = k < 3 ? lo + per : n_lit;
-      int bits = 0;
-      for (int i = lo + lane; i < hi; i += 32) bits += t[lit[i]] >> 12;
-      sb[k] = (warp_sum(bits) + 1 + 7) >> 3;
-      s_total += sb[k];
-    }
-    const int csize = tree_b + 6 + s_total;
-    use_huf = 5 + csize < 3 + n_lit;
-    if (use_huf) {
-      w.copy(18, tree + static_cast<size_t>(chunk) * kTreeCap, min(tree_b, kTreeCap));
-      const int jo = 18 + tree_b;
-      if (lane < 4) {  // lanes 0-3: the four streams, each backward from its end
-        int op = jo + 6;
-        for (int k = 0; k < lane; ++k) op += sb[k];
-        LaneBits s{orow, out_cap, op, 0, 0};
-        const int lo = lane * per, cnt = lane < 3 ? per : n_lit - 3 * per;
-        for (int i = lo + cnt - 1; i >= lo; --i) {
-          const int pk = t[lit[i]];
-          s.put(pk & 0xFFF, pk >> 12);
-        }
-        s.put(1, 1);
-        s.flush();
-      }
-      if (lane == 0) {
-        for (int k = 0; k < 3; ++k) {
-          w.put(jo + 2 * k, sb[k] & 0xFF);
-          w.put(jo + 2 * k + 1, (sb[k] >> 8) & 0xFF);
-        }
-        // the 5-byte header: type 2 (compressed), Size_Format 3 (18 + 18 bits)
-        const uint32_t lo = 2u | (3u << 2) | ((static_cast<uint32_t>(n_lit) & 0x3FFFF) << 4) |
-                            ((static_cast<uint32_t>(csize) & 0x3FF) << 22);
-        for (int k = 0; k < 4; ++k) w.put(13 + k, (lo >> (8 * k)) & 0xFF);
-        w.put(17, (csize >> 10) & 0xFF);
-      }
-      __syncwarp();
-    }
-  }
-  int o1;
-  if (use_huf) {
-    o1 = 18 + tree_b + 6 + sb[0] + sb[1] + sb[2] + sb[3];
-  } else {  // raw literals, the 3-byte header (Size_Format 3: a 20-bit size)
-    if (lane == 0) {
-      w.put(13, (3 << 2) | ((n_lit & 0xF) << 4));
-      w.put(14, (n_lit >> 4) & 0xFF);
-      w.put(15, (n_lit >> 12) & 0xFF);
-    }
-    w.copy(16, lit, n_lit);
-    o1 = 16 + n_lit;
-  }
-
-  // ---- the sequences section ----
-  const int32_t* fse = fse_tab + static_cast<size_t>(chunk) * kFseTT;
-  auto tab = [fse](int i) { return fse[min(max(i, 0), kFseTT - 1)]; };
-  int total;
-  if (nseq > 0) {
-    const int nc_len = min(tab(kO2Meta + 4), kNcCap);
-    if (nc_len > 0) w.copy(o1 + 3, nc + static_cast<size_t>(chunk) * kNcCap, nc_len);
-    BitOut bits{w, o1 + 3 + nc_len, 0, 0};
-    int s_ll = 0, s_ml = 0, s_of = 0;
-    for (int j = 0; j < nseq; ++j) {
-      const int i = nseq - 1 - j;
-      const uint32_t a = static_cast<uint32_t>(seqa[i]);
-      const int ofv = seqb[i];
-      const int ll = a & 0xFFFF;
-      const int mlv = (a >> 16) & 0xFFFF;
-      const int llc = ll_code(cst, ll), mlc = ml_code(cst, mlv), ofc = hibit(ofv);
-      const int ofr = min(ofc, 31);
-      if (j == 0) {  // the last sequence: the initial states, no bits
-        s_ll = tab(kO2LLF + llc);
-        s_ml = tab(kO2MLF + mlc);
-        s_of = tab(kO2OFF + ofr);
-      } else {
-        int pk = tab(kO2OF + ofr * 256 + s_of);
-        bits.put(s_of - static_cast<int>(static_cast<uint32_t>(pk) >> 14), (pk >> 10) & 0xF);
-        const int n_of = pk & 0x3FF;
-        pk = tab(kO2ML + mlc * 512 + s_ml);
-        bits.put(s_ml - static_cast<int>(static_cast<uint32_t>(pk) >> 14), (pk >> 10) & 0xF);
-        const int n_ml = pk & 0x3FF;
-        pk = tab(kO2LL + llc * 512 + s_ll);
-        bits.put(s_ll - static_cast<int>(static_cast<uint32_t>(pk) >> 14), (pk >> 10) & 0xF);
-        s_ll = pk & 0x3FF;
-        s_ml = n_ml;
-        s_of = n_of;
-      }
-      const int llpk = cst[kOLLX + llc], mlpk = cst[kOMLX + mlc];
-      bits.put(ll - static_cast<int>(static_cast<uint32_t>(llpk) >> 8), llpk & 0xFF);
-      bits.put(mlv + 3 - static_cast<int>(static_cast<uint32_t>(mlpk) >> 8), mlpk & 0xFF);
-      bits.put(ofv - (1 << ofc), ofc);
-    }
-    bits.put(s_ml, tab(kO2Meta + 1));
-    bits.put(s_of, tab(kO2Meta + 2));
-    bits.put(s_ll, tab(kO2Meta));
-    bits.put(1, 1);  // the padding bit
-    bits.flush();
-    total = bits.op;
-  } else {
-    total = o1 + 1;
-  }
-
-  // ---- the block: compressed, or raw when that is not longer ----
-  __syncwarp();  // lane 0's stream bytes land before the whole warp rewrites
-  int bh;
-  if (total >= 13 + size) {
-    w.copy(13, in, size);
-    total = 13 + size;
-    bh = 1 | (size << 3);
-  } else {
-    if (lane == 0) {
-      w.put(o1, nseq == 0 ? 0 : 128 + (nseq >> 8));
-      if (nseq > 0) {
-        w.put(o1 + 1, nseq & 0xFF);
-        w.put(o1 + 2, tab(kO2Meta + 3));
-      }
-    }
-    bh = 1 | (2 << 1) | ((total - 13) << 3);
-  }
-  if (lane == 0) {  // the frame header: magic, FHD (4-byte FCS), window, FCS, block
-    const int bl = 32 - __clz(max(size - 1, 1));
-    const int wl = size <= 1024 ? 10 : max(bl, 10);
-    const int head[13] = {0x28, 0xB5, 0x2F, 0xFD, 0x80, (wl - 10) << 3,
-                          size & 0xFF, (size >> 8) & 0xFF, (size >> 16) & 0xFF,
-                          (size >> 24) & 0xFF, bh & 0xFF, (bh >> 8) & 0xFF, (bh >> 16) & 0xFF};
-    for (int k = 0; k < 13; ++k) w.put(k, head[k]);
-  }
-  const bool too_big = total > out_cap;
-  const int osz = too_big ? 0 : total;
-  __syncwarp();  // order lane 0's stores before the zero fill
-  tpucomp::warp_fill(orow, osz, out_cap, 0, lane);
-  if (lane == 0) {
-    out_sizes[chunk] = osz;
-    statuses[chunk] = too_big ? kOutputTooSmall : kSuccess;
+  for (int i = anchor + lane; i < size; i += 32) atomicAdd(&t[in[i]], 1);
+  __syncwarp();
+  for (int i = lane; i < kHist; i += 32) {
+    if (i < 256)
+      freq_out[static_cast<size_t>(chunk) * 256 + i] = t[i];
+    else
+      sch_out[static_cast<size_t>(chunk) * 121 + i - 256] = t[i];
   }
 }
 
@@ -453,18 +204,20 @@ zstd_encode_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__
 //     whose offset is on its stack is kept instead (the walk's repeat rule),
 //     and the next round starts past its match;
 //  5. each sequence's exact back extension (bounded by its anchor and
-//     src2 > 0), ll, ml, offset value and codes; its literals to the scratch
-//     row at a block scan of ll;
+//     src2 > 0), ll, ml, offset value and codes; its literals to the
+//     scratch at a block scan of ll;
 //  6. the literal streams' bit counts (a reduction of code lengths), the
 //     Huffman-or-raw decision;
 //  7. the FSE states, step by step from the last sequence: the used columns
-//     of the encode tables in shared memory, 32 chases of segments from
-//     guessed states, one lane joining them where they meet;
+//     of the encode tables in shared memory, three lanes stepping the LL, ML
+//     and OF states (a shared-memory load a step; the states of custom
+//     tables never meet from guessed starts, so segments would not pay);
 //  8. the sequence stream's length, the raw-block and too-big decisions;
 //  9. the frame: each literal's code at its stream's suffix sum and each
 //     sequence's fields at a prefix sum, or-ed into shared words and copied
 //     to the row; the zero tail in 16-byte stores.
-// The CTAs stay resident, one an SM, each taking every gridDim-th chunk.
+// The CTAs stay resident, one an SM, each taking every gridDim-th chunk
+// through its own row of the global scratch.
 
 using lzp::kFull;
 using lzp::kPThreads;
@@ -478,8 +231,9 @@ constexpr int kNoCap = kMaxPos;                    // zstd's forward extension i
 constexpr uint8_t kNotCand = 7;                    // plvl of a position without a candidate
 constexpr int kNoGate = 4;                         // plvl of a candidate that fails the gate
 
-// Global scratch a chunk, in int32 words (the wrapper allocates it): the
-// per-position table, then the per-sequence records.
+// Global scratch a CTA, in int32 words (the wrapper allocates a row for
+// each CTA it launches; a CTA's chunks reuse it one after another): the
+// per-position table, the per-sequence records, the literals.
 constexpr int kScrInfo = 0;                        // u32 [65536]: Lf | c << 16
 constexpr int kScrLvl = kScrInfo + kMaxPos;        // u8 [65536]: the gate level
 constexpr int kScrSeqA = kScrLvl + kMaxPos / 4;    // [kMaxSeq] ll | (ml - 3) << 16
@@ -487,15 +241,16 @@ constexpr int kScrSeqB = kScrSeqA + kMaxSeq;       // [kMaxSeq] offset value
 constexpr int kScrStack = kScrSeqB + kMaxSeq;      // u64 [kMaxSeq] the repeat stack before
 constexpr int kScrState = kScrStack + 2 * kMaxSeq; // [kMaxSeq] FSE states after a step
 constexpr int kScrCode = kScrState + kMaxSeq;      // [kMaxSeq] llc | mlc << 6 | ofc << 12
-constexpr int kScrWords = kScrCode + kMaxSeq;
+constexpr int kScrLit = kScrCode + kMaxSeq;        // u8 [65536] the literals in order
+constexpr int kScrLane = kScrLit + kMaxPos / 4;    // u16 [3][kMaxSeq] each table's states
+constexpr int kScrWords = kScrLane + 3 * kMaxSeq / 2;
 
 // Shared memory, in bytes.  Region A: the bytes for phases 1-2, then each
 // sequence's anchor and match position (u16 lists) for the rounds and 5,
-// the FSE states for 7, the staging of the literal streams and of the
-// sequence stream for 9.  Region N: next() (u16 a position) for phases 2-4,
-// then the literals' places for 5, then (with the dead masks) the FSE
-// encode tables' used columns (u16: next state | bits << 10) and the first
-// steps' codes for 7-9.
+// each FSE step's codes for 7, the staging of the literal streams and of
+// the sequence stream for 9.  Region N: next() (u16 a position) for phases
+// 2-4, then the literals' places for 5, then (with the dead masks) the FSE
+// encode tables' used columns (u16: next state << 1 | bits << 11) for 7-9.
 constexpr int kZA = 0;
 constexpr int kZPath = kZA;                        // u16 [kMaxSeq] sequence j's anchor
 constexpr int kZK = kZPath + 2 * kMaxSeq;          // u16 [kMaxSeq] its match position
@@ -511,10 +266,10 @@ constexpr int kZMisc = kZScr64 + 8 * 32;           // int [24]
 constexpr int kZBytes = kZMisc + 4 * 24;
 constexpr int kStage = kMaxPos + 16;               // staging bytes (a stream is < 64 KiB + 13)
 constexpr int kZFse = kZN;                         // u16 [kO2LLF] the FSE columns in use
-constexpr int kZCodes = kZFse + 2 * kO2LLF;        // u32 [kCodeCap] the first steps' codes
-constexpr int kCodeCap = 10240;
+constexpr int kZCodes = kZA;                       // u32 [kMaxSeq] each FSE step's codes
+constexpr int kSegs = 10;                          // FSE chase segments, three lanes each
 static_assert(kZK + 2 * kMaxSeq <= kZN && kStage <= kZN, "region A overflows");
-static_assert(kZCodes + 4 * kCodeCap <= kZR, "the FSE columns and codes overflow");
+static_assert(kZFse + 2 * kO2LLF <= kZR && 4 * kMaxSeq <= kZN, "the FSE columns or codes overflow");
 static_assert(kZBytes <= lzp::kSmemMax, "more shared memory than a Hopper CTA may have");
 
 enum ZMisc { kZm = 0, kZEndPos = 1, kZEndKind = 2, kZViol = 3, kZLast0 = 4, kZLast1 = 5,
@@ -555,24 +310,6 @@ __device__ __forceinline__ int fse_at(const int32_t* fse, int i) {
   return __ldg(fse + min(max(i, 0), kFseTT - 1));
 }
 
-// The states after FSE step b from those after step b - 1 (packed ll | ml
-// << 10 | of << 20); the first step starts them from the first slots.  t16:
-// the used columns (next state | bits << 10) in fse_tab's layout.
-__device__ __forceinline__ uint32_t fse_step(const uint16_t* t16, const int32_t* fse, uint32_t code,
-                                             bool first, uint32_t prev) {
-  const int llc = code & 0x3F, mlc = (code >> 6) & 0x3F, ofr = min(static_cast<int>(code >> 12), 31);
-  if (first)
-    return static_cast<uint32_t>(fse_at(fse, kO2LLF + llc)) |
-           (static_cast<uint32_t>(fse_at(fse, kO2MLF + mlc)) << 10) |
-           (static_cast<uint32_t>(fse_at(fse, kO2OFF + ofr)) << 20);
-  const int s_ll = prev & 0x3FF, s_ml = (prev >> 10) & 0x3FF, s_of = (prev >> 20) & 0x3FF;
-  const int po = t16[kO2OF + ofr * 256 + s_of];
-  const int pm = t16[kO2ML + mlc * 512 + s_ml];
-  const int pl = t16[kO2LL + llc * 512 + s_ll];
-  return static_cast<uint32_t>(pl & 0x3FF) | (static_cast<uint32_t>(pm & 0x3FF) << 10) |
-         (static_cast<uint32_t>(po & 0x3FF) << 20);
-}
-
 // FSE step b's fields (value, width) in stream order: the OF, ML and LL
 // transitions from the states before it (width 0 at the first step: they
 // set the states), then the LL, ML and OF extra bits.  A transition emits
@@ -585,9 +322,9 @@ __device__ __forceinline__ void fse_fields(const uint16_t* t16, const int32_t* c
   } else {
     const int ofr = min(q.ofc, 31);
     const int s_ll = prev & 0x3FF, s_ml = (prev >> 10) & 0x3FF, s_of = (prev >> 20) & 0x3FF;
-    n[0] = (t16[kO2OF + ofr * 256 + s_of] >> 10) & 0xF;
-    n[1] = (t16[kO2ML + q.mlc * 512 + s_ml] >> 10) & 0xF;
-    n[2] = (t16[kO2LL + q.llc * 512 + s_ll] >> 10) & 0xF;
+    n[0] = (t16[kO2OF + ofr * 256 + s_of] >> 11) & 0xF;
+    n[1] = (t16[kO2ML + q.mlc * 512 + s_ml] >> 11) & 0xF;
+    n[2] = (t16[kO2LL + q.llc * 512 + s_ll] >> 11) & 0xF;
     v[0] = s_of & ((1u << n[0]) - 1u);
     v[1] = s_ml & ((1u << n[1]) - 1u);
     v[2] = s_ll & ((1u << n[2]) - 1u);
@@ -635,8 +372,8 @@ __device__ __forceinline__ void full_chunk(
     const int32_t* __restrict__ cand8, int cap, const int32_t* __restrict__ cst,
     const int32_t* __restrict__ huf_meta, const uint8_t* __restrict__ tree,
     const int32_t* __restrict__ fse_tab, const uint8_t* __restrict__ nc,
-    int32_t* __restrict__ scratch, uint8_t* __restrict__ lit_scratch, uint8_t* __restrict__ out,
-    int out_cap, int32_t* __restrict__ out_sizes, int32_t* __restrict__ statuses) {
+    int32_t* __restrict__ scw, uint8_t* __restrict__ out, int out_cap,
+    int32_t* __restrict__ out_sizes, int32_t* __restrict__ statuses) {
   uint8_t* bytes = smem + kZA;
   const uint32_t* words = reinterpret_cast<const uint32_t*>(bytes);
   uint16_t* nextv = reinterpret_cast<uint16_t*>(smem + kZN);
@@ -658,7 +395,6 @@ __device__ __forceinline__ void full_chunk(
   const uint8_t* in = data + row;
   const int size = min(max(sizes[chunk], 0), min(cap, kMaxPos));
   const int mflimit = size - kMinMatch + 1;
-  int32_t* scw = scratch + static_cast<size_t>(chunk) * kScrWords;
   uint32_t* pinfo = reinterpret_cast<uint32_t*>(scw + kScrInfo);
   uint8_t* plvl = reinterpret_cast<uint8_t*>(scw + kScrLvl);
   int32_t* seqa = scw + kScrSeqA;
@@ -667,7 +403,6 @@ __device__ __forceinline__ void full_chunk(
   uint32_t* sstate = reinterpret_cast<uint32_t*>(scw + kScrState);
   int32_t* seqc = scw + kScrCode;
   uint16_t* t16 = reinterpret_cast<uint16_t*>(smem + kZFse);
-  uint32_t* sst = reinterpret_cast<uint32_t*>(smem + kZA);
   uint32_t* scodes = reinterpret_cast<uint32_t*>(smem + kZCodes);
   const int32_t* fse = fse_tab + static_cast<size_t>(chunk) * kFseTT;
   const int32_t* meta = huf_meta + static_cast<size_t>(chunk) * kHufMeta;
@@ -924,7 +659,7 @@ __device__ __forceinline__ void full_chunk(
   const int tail = m > 0 ? tokk[m - 1] + static_cast<int>((static_cast<uint32_t>(seqa[m - 1]) >> 16) + 3)
                          : 0;
   const int n_lit = misc[kZNlit] + size - tail;
-  uint8_t* lit = lit_scratch + row;
+  uint8_t* lit = reinterpret_cast<uint8_t*>(scw + kScrLit);
   for (int j = wi; j <= m; j += kPWarps) {  // warp j: sequence j's literals (j == m: the tail)
     const int a = j < m ? path[j] : tail, b = j < m ? tokk[j] : size;
     const int o = j < m ? static_cast<int>(litpos[j]) : misc[kZNlit];
@@ -958,12 +693,15 @@ __device__ __forceinline__ void full_chunk(
   const int o1 = use_huf ? 18 + csize : 16 + n_lit;
 
   // ---- 7: the FSE states, step b = m - 1 - j (from the last sequence).
-  // The used columns of the encode tables come into shared memory; lane k
-  // of warp 0 chases segment k of the steps from a guessed start (the first
-  // slots), then lane 0 joins them: from the true state entering a segment
-  // it steps until it meets the guessed chase (states converge, since the
-  // next state depends on the state only through state >> bits) or the
-  // segment's end.
+  // The used columns of the encode tables come into shared memory (t16:
+  // next state << 1 | bits << 11), each step's codes too.  Lane 3g + t of
+  // warp 0 chases table t's states (LL, ML, OF) over segment g of the steps
+  // from a guessed start (the first slots), into table t's row of the
+  // scratch; then lanes 0-2 join the segments in order: from the true state
+  // entering one, each steps until it meets the chase (predefined tables'
+  // states soon do; custom tables' seldom) or the segment's end.  A step is
+  // one add, one shared load and one and (the state kept doubled, a byte
+  // offset; the columns of eight steps worked out first), with no branch.
   auto seq_at = [&](int b) {
     const int j = m - 1 - b;
     const uint32_t a = static_cast<uint32_t>(seqa[j]), code = static_cast<uint32_t>(seqc[j]);
@@ -986,57 +724,68 @@ __device__ __forceinline__ void full_chunk(
     }
 #pragma unroll
     for (int u = 0; u < 8; ++u)
-      if (e[u] >= 0) t16[i0 + u * kPThreads] = static_cast<uint16_t>((e[u] & 0x3FF) | (((e[u] >> 10) & 0xF) << 10));
+      if (e[u] >= 0) t16[i0 + u * kPThreads] = static_cast<uint16_t>(((e[u] & 0x3FF) << 1) | (((e[u] >> 10) & 0xF) << 11));
   }
-  for (int b = tid; b < min(m, kCodeCap); b += kPThreads) scodes[b] = seqc[m - 1 - b];
+  for (int b = tid; b < m; b += kPThreads) scodes[b] = seqc[m - 1 - b];
   __syncthreads();
-  // step b's code: from shared memory for the first kCodeCap steps
-  auto code_at = [&](int b) { return b < kCodeCap ? scodes[b] : static_cast<uint32_t>(seqc[m - 1 - b]); };
-  if (wi == 0 && m > 0) {
-    const int seg = (m + 31) >> 5;
-    const int lo = min(m, lane * seg), hi = min(m, lo + seg);
-    uint32_t st = 0;
-    if (lo < hi) {
-      st = fse_step(t16, fse, code_at(lo), true, 0);
-      sst[lo] = st;
-    }
-    for (int b = lo + 1; b < hi; b += 8) {  // the codes eight at a time, in flight together
-      uint32_t cc[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) cc[u] = b + u < hi ? code_at(b + u) : 0;
+  uint16_t* lstate = reinterpret_cast<uint16_t*>(scw + kScrLane);  // [3][kMaxSeq]
+  if (wi == 0 && lane < 3 * kSegs && m > 0) {
+    // lane 3g + t: table t (its code field: LL bits 0-5, ML 6-11, OF from
+    // 12 capped at 31; its columns' start and width in bytes; its first
+    // slots), segment g
+    const int t = lane % 3, g = lane / 3;
+    const int shr = 6 * t, lim = t == 2 ? 31 : 63;
+    const uint32_t mask = t == 2 ? 0xFFFFFFFFu : 0x3Fu;
+    const int cols2 = 2 * (t == 0 ? kO2LL : t == 1 ? kO2ML : kO2OF);
+    const int width2 = t == 2 ? 512 : 1024;
+    const int firsts = t == 0 ? kO2LLF : t == 1 ? kO2MLF : kO2OFF;
+    uint16_t* mine = lstate + t * kMaxSeq;
+    const char* tb = reinterpret_cast<const char*>(t16);
+    const int seg = (m + kSegs - 1) / kSegs;
+    // steps [b, b + 8) from doubled state s2, each stored when before `to`;
+    // returns the doubled state after step b + 7
+    auto eight = [&](int b, int to, int s2) {
+      int cb[8];
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
-        if (b + u < hi) {
-          st = fse_step(t16, fse, cc[u], false, st);
-          sst[b + u] = st;
-        }
+        const int i = min(b + u, m - 1);
+        cb[u] = cols2 + min(static_cast<int>((scodes[i] >> shr) & mask), lim) * width2;
       }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        s2 = *reinterpret_cast<const uint16_t*>(tb + cb[u] + s2) & 0x7FE;
+        if (b + u < to) mine[b + u] = static_cast<uint16_t>(s2 >> 1);
+      }
+      return s2;
+    };
+    const int lo = min(m, g * seg), hi = min(m, lo + seg);
+    if (lo < hi) {  // the chase: segment 0's start is the true one
+      const int st0 = fse_at(fse, firsts + min(static_cast<int>((scodes[lo] >> shr) & mask), lim));
+      mine[lo] = static_cast<uint16_t>(st0);
+      int s2 = 2 * (st0 & 0x3FF);
+      for (int b = lo + 1; b < hi; b += 8) s2 = eight(b, hi, s2);
     }
-    __syncwarp();
-    if (lane == 0) {  // the join
-      for (int k = 1; k < 32 && k * seg < m; ++k) {
-        const int end = min(m, k * seg + seg);
-        uint32_t prev = sst[k * seg - 1];
-        uint32_t code = code_at(k * seg), spec = sst[k * seg];
-        for (int b = k * seg; b < end; ++b) {
-          // the next step's code and guessed state, loaded ahead of the chain
-          const uint32_t code2 = b + 1 < end ? code_at(b + 1) : 0;
-          const uint32_t spec2 = b + 1 < end ? sst[b + 1] : 0;
-          const uint32_t st2 = fse_step(t16, fse, code, false, prev);
-          if (st2 == spec) break;
-          sst[b] = st2;
-          prev = st2;
-          code = code2, spec = spec2;
+    __syncwarp(0x3FFFFFFFu);
+    if (g == 0) {  // the join
+      for (int k = 1; k < kSegs && k * seg < m; ++k) {
+        const int jlo = k * seg, jhi = min(m, jlo + seg);
+        int s2 = 2 * (mine[jlo - 1] & 0x3FF);
+        for (int b = jlo; b < jhi; b += 8) {
+          const int guess = b + 7 < jhi ? mine[b + 7] : -1;  // the chase's state there
+          s2 = eight(b, jhi, s2);
+          if (2 * guess == s2) break;  // met: the chase is right from here on
         }
       }
     }
   }
   __syncthreads();
-  for (int b = tid; b < m; b += kPThreads) sstate[b] = sst[b];
+  for (int b = tid; b < m; b += kPThreads)
+    sstate[b] = static_cast<uint32_t>(lstate[b]) | (static_cast<uint32_t>(lstate[kMaxSeq + b]) << 10) |
+                (static_cast<uint32_t>(lstate[2 * kMaxSeq + b]) << 20);
   const int sper = (m + kPThreads - 1) / kPThreads;
   const int b0 = min(m, tid * sper), b1 = min(m, tid * sper + sper);
   __syncthreads();
-  for (int i = tid; i < kStage / 4; i += kPThreads) stage[i] = 0;  // over the states
+  for (int i = tid; i < kStage / 4; i += kPThreads) stage[i] = 0;
   __syncthreads();
 
   // ---- 8: the sequence stream's length, then the frame's
@@ -1160,97 +909,65 @@ __device__ __forceinline__ void full_chunk(
   unstage(stage, orow, o1 + 3 + nc_len, seq_bytes, tid);
 }
 
-// The parse, a CTA an SM: each takes every gridDim-th chunk that the walk
-// has not taken (steps given and at most budget).
+// The parse, a CTA an SM: CTA i takes every gridDim-th chunk from i, through
+// scratch row i.
 __global__ void __launch_bounds__(kPThreads, 1)
 zstd_full_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__ sizes,
                  const int32_t* __restrict__ cand, const int32_t* __restrict__ cand8, int batch,
                  int cap, const int32_t* __restrict__ cst, const int32_t* __restrict__ huf_meta,
                  const uint8_t* __restrict__ tree, const int32_t* __restrict__ fse_tab,
                  const uint8_t* __restrict__ nc, int32_t* __restrict__ scratch,
-                 uint8_t* __restrict__ lit_scratch, uint8_t* __restrict__ out, int out_cap,
-                 int32_t* __restrict__ out_sizes, int32_t* __restrict__ statuses,
-                 const int32_t* __restrict__ steps, int budget) {
+                 uint8_t* __restrict__ out, int out_cap, int32_t* __restrict__ out_sizes,
+                 int32_t* __restrict__ statuses) {
   extern __shared__ __align__(16) uint8_t smem[];
+  int32_t* scw = scratch + static_cast<size_t>(blockIdx.x) * kScrWords;
   for (int chunk = blockIdx.x; chunk < batch; chunk += gridDim.x) {
-    if (steps != nullptr && steps[chunk] <= budget) continue;  // the walk's
-    full_chunk(chunk, smem, data, sizes, cand, cand8, cap, cst, huf_meta, tree, fse_tab, nc,
-               scratch, lit_scratch, out, out_cap, out_sizes, statuses);
-    __syncthreads();  // shared memory is the next chunk's
+    full_chunk(chunk, smem, data, sizes, cand, cand8, cap, cst, huf_meta, tree, fse_tab, nc, scw,
+               out, out_cap, out_sizes, statuses);
+    __syncthreads();  // shared memory and the scratch row are the next chunk's
   }
-}
-
-template <int M>
-int launch_walk(const uint8_t* data, const int32_t* sizes, const int32_t* cand,
-                const int32_t* cand8, const int32_t* nxt, int batch, int cap, int cap_seq,
-                const int32_t* cst, const int32_t* huf_meta, const uint8_t* tree,
-                const int32_t* fse_tab, const uint8_t* nc, int32_t* seq_scratch,
-                uint8_t* lit_scratch, int32_t* freq, int32_t* sch, uint8_t* out, int out_cap,
-                int32_t* out_sizes, int32_t* statuses, int32_t* steps, int budget, void* stream) {
-  const int blocks = (batch + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  zstd_encode_kernel<M><<<blocks, kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      data, sizes, cand, cand8, nxt, batch, cap, cap_seq, cst, huf_meta, tree, fse_tab, nc,
-      seq_scratch, lit_scratch, freq, sch, out, out_cap, out_sizes, statuses, steps, budget);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Each launches on `stream` and returns cudaGetLastError() after the launch
-// (0 = ok).  cst is ops/cuda/zstd_encode.py's CONST; cap_seq the sequence
-// slots a chunk may fill (cap / 4 + 8).
-// hist writes each chunk's walk steps (candidates visited) into steps
-// int32[B] when it is not null.
+// (0 = ok).  cst is ops/cuda/zstd_encode.py's CONST.
+// hist: cap_seq is the sequence slots a chunk may fill (cap / 4 + 8);
+// freq int32[B, 256], sch int32[B, 121].
 extern "C" int tpucomp_zstd_encode_hist(const uint8_t* data, const int32_t* sizes,
                                         const int32_t* cand, const int32_t* cand8,
                                         const int32_t* nxt, int batch, int cap, int cap_seq,
                                         const int32_t* cst, int32_t* freq, int32_t* sch,
-                                        int32_t* steps, void* stream) {
-  if (batch <= 0) return 0;
-  return launch_walk<kHistMode>(data, sizes, cand, cand8, nxt, batch, cap, cap_seq, cst,
-                                nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, freq, sch,
-                                nullptr, 0, nullptr, nullptr, steps, 0, stream);
-}
-
-// The parse's scratch a chunk, in int32 words.
-extern "C" int tpucomp_zstd_encode_scratch_words() { return kScrWords; }
-
-// Two launches: the walk takes the chunks whose hist walk took at most
-// `budget` steps (steps int32[B] from tpucomp_zstd_encode_hist; none when
-// steps is null), the parse the others.  huf_meta int32[B, 258] (code |
-// nbits << 12 per byte, tree bytes, huf_ok), tree uint8[B, 176], fse_tab
-// int32[B, 54016], nc uint8[B, 512]; scratch: seq_scratch int32[B, 2 *
-// cap_seq] (the walk's sequences), lit_scratch uint8[B, cap], scratch
-// int32[B, scratch_words()] (the parse's per-position table and sequence
-// records).  cap <= 65536.
-extern "C" int tpucomp_zstd_encode_full(const uint8_t* data, const int32_t* sizes,
-                                        const int32_t* cand, const int32_t* cand8,
-                                        const int32_t* nxt, int batch, int cap, int cap_seq,
-                                        const int32_t* cst, const int32_t* huf_meta,
-                                        const uint8_t* tree, const int32_t* fse_tab,
-                                        const uint8_t* nc, int32_t* seq_scratch,
-                                        uint8_t* lit_scratch, int32_t* scratch,
-                                        const int32_t* steps, int budget, uint8_t* out,
-                                        int out_cap, int32_t* out_sizes, int32_t* statuses,
                                         void* stream) {
   if (batch <= 0) return 0;
-  if (cap > kMaxPos) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (batch + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  zstd_hist_kernel<<<blocks, kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      data, sizes, cand, cand8, nxt, batch, cap, cap_seq, cst, freq, sch);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The parse's scratch a CTA, in int32 words.
+extern "C" int tpucomp_zstd_encode_scratch_words() { return kScrWords; }
+
+// full: huf_meta int32[B, 258] (code | nbits << 12 per byte, tree bytes,
+// huf_ok), tree uint8[B, 176], fse_tab int32[B, 54016], nc uint8[B, 512];
+// scratch int32[ctas, scratch_words()], a row for each of the min(B, ctas)
+// CTAs launched (the per-position table, the sequence records, the
+// literals).  cap <= 65536.
+extern "C" int tpucomp_zstd_encode_full(const uint8_t* data, const int32_t* sizes,
+                                        const int32_t* cand, const int32_t* cand8, int batch,
+                                        int cap, const int32_t* cst, const int32_t* huf_meta,
+                                        const uint8_t* tree, const int32_t* fse_tab,
+                                        const uint8_t* nc, int32_t* scratch, int ctas,
+                                        uint8_t* out, int out_cap, int32_t* out_sizes,
+                                        int32_t* statuses, void* stream) {
+  if (batch <= 0) return 0;
+  if (cap > kMaxPos || ctas <= 0) return static_cast<int>(cudaErrorInvalidValue);
   static unsigned long long raised = 0;  // one bit a device
-  cudaError_t e = lzp::raise_smem_limit(zstd_full_kernel, kZBytes, raised);
+  const cudaError_t e = lzp::raise_smem_limit(zstd_full_kernel, kZBytes, raised);
   if (e != cudaSuccess) return static_cast<int>(e);
-  int dev = 0, sms = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
-      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return static_cast<int>(e);
-  if (steps != nullptr) {
-    const int rc = launch_walk<kFullMode>(data, sizes, cand, cand8, nxt, batch, cap, cap_seq, cst,
-                                          huf_meta, tree, fse_tab, nc, seq_scratch, lit_scratch,
-                                          nullptr, nullptr, out, out_cap, out_sizes, statuses,
-                                          const_cast<int32_t*>(steps), budget, stream);
-    if (rc != 0) return rc;
-  }
-  zstd_full_kernel<<<min(batch, sms), kPThreads, kZBytes, static_cast<cudaStream_t>(stream)>>>(
-      data, sizes, cand, cand8, batch, cap, cst, huf_meta, tree, fse_tab, nc, scratch, lit_scratch,
-      out, out_cap, out_sizes, statuses, steps, budget);
+  zstd_full_kernel<<<min(batch, ctas), kPThreads, kZBytes, static_cast<cudaStream_t>(stream)>>>(
+      data, sizes, cand, cand8, batch, cap, cst, huf_meta, tree, fse_tab, nc, scratch, out,
+      out_cap, out_sizes, statuses);
   return static_cast<int>(cudaGetLastError());
 }

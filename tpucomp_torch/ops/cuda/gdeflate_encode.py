@@ -25,15 +25,16 @@ matches).
 ``hist`` walks a chunk's tokens serially, one warp a chunk.  ``fixed`` and
 ``emit`` parse a chunk in parallel, one CTA a chunk: the token that follows
 a scan position depends on that position alone, so every position's next
-token is computed at once (:func:`next_tokens_plain` is that pass's plain
-version), the chain of next tokens from 0 is found (32 chases from segment
-starts, joined by one lane) and its tokens numbered (:func:`path_plain`
-follows it from 0), and the tokens are coded and packed into the lanes at
-once (:func:`lanes_from_path_plain`; :func:`parse_lanes_plain` over a
-batch).  The plain versions of the whole modes (:func:`fixed_plain`,
-:func:`emit_plain`, :func:`hist_plain`) run the serial walk in Python; the
-CPU tests hold them against the reference and the parse pieces against the
-walk, and ``chip_smoke.py`` holds the kernels against them.
+token is computed at once (``lz_parse.next_tokens_plain`` is that pass's
+plain version), the chain of next tokens from 0 is found (32 chases from
+segment starts, joined by one lane) and its tokens numbered
+(``lz_parse.path_plain`` follows it from 0), and the tokens are coded and
+packed into the lanes at once (:func:`lanes_from_path_plain`;
+:func:`parse_lanes_plain` over a batch).  The plain versions of the whole
+modes (:func:`fixed_plain`, :func:`emit_plain`, :func:`hist_plain`) run the
+serial walk in Python; the CPU tests hold them against the reference and the
+parse pieces against the walk, and ``chip_smoke.py`` holds the kernels
+against them.
 
 Contract: ``data uint8[B, cap]`` plus ``sizes int32[B]`` (each in ``[0,
 cap]``; values outside are clamped) -> ``(out uint8[B, out_cap], out_sizes
@@ -60,7 +61,6 @@ from tpucomp_torch.ops import match
 from tpucomp_torch.ops.cuda import _build
 from tpucomp_torch.ops.cuda.deflate_encode import (_FIXED_LIT, _dist_sym, _len_sym, _rev, _rows,
                                                    _walk)
-from tpucomp_torch.ops.cuda.lz_parse import next_tokens_plain, path_plain  # noqa: F401
 from tpucomp_torch.ops.cuda.lz4_encode2 import _clamped_sizes
 
 NT_CAP = 65536          # tokens a tile may have (all literals of 64 KiB)

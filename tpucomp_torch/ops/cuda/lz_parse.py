@@ -19,14 +19,19 @@ from tpucomp_torch.ops.cuda.deflate_encode import MAX_MATCH, MIN_MATCH
 
 
 def _common_prefix(words: np.ndarray, a: np.ndarray, c: np.ndarray,
-                   cap_n: np.ndarray) -> np.ndarray:
+                   cap_n: np.ndarray, row: np.ndarray | None = None) -> np.ndarray:
     """Per element, the common-prefix length of the bytes at ``a`` and at
-    ``c``, at most ``cap_n`` (<= 254), 8 bytes a step: ``words[x]`` holds
-    the 8 bytes at ``x`` (little-endian), far enough past the last byte
-    that ``a + cap_n`` and ``c + cap_n`` stay inside."""
+    ``c < a``, at most ``cap_n``, 8 bytes a step: ``words[x]`` holds the 8
+    bytes at ``x`` (little-endian), far enough past the last byte that ``a +
+    cap_n`` and ``c + cap_n`` stay inside.  Without ``row`` it steps up to
+    ``cap_n`` (Deflate's, <= 254).  With ``row`` (the chunk's bytes, for
+    zstd's uncapped matches) it steps 64 bytes, then finds the rest a
+    distance at a time: the first byte at or past ``a + 64`` that differs
+    from the one its distance before."""
     n = np.zeros(a.shape, np.int64)
     live = np.nonzero(cap_n > 0)[0]
-    for k in range(0, int(cap_n.max()) if cap_n.size else 0, 8):
+    stop = 64 if row is not None else int(cap_n.max()) if cap_n.size else 0
+    for k in range(0, stop, 8):
         if not live.size:
             break
         x = words[a[live] + k] ^ words[c[live] + k]
@@ -34,6 +39,16 @@ def _common_prefix(words: np.ndarray, a: np.ndarray, c: np.ndarray,
         first = np.where(x != 0, np.log2(np.maximum(low, 1)).astype(np.int64) >> 3, 8)
         n[live] = k + first
         live = live[(x == 0) & (k + 8 < cap_n[live])]
+    if row is not None and live.size:
+        size = len(row)
+        dist = a[live] - c[live]
+        for d in np.unique(dist):
+            sel = live[dist == d]
+            idx = np.arange(d, size)
+            mis = np.where(row[d:] == row[:size - d], size, idx)
+            nf = np.minimum.accumulate(mis[::-1])[::-1]         # first mismatch at or past x
+            start = a[sel] + 64
+            n[sel] = np.where(start < size, nf[np.minimum(start, size - 1) - d], size) - a[sel]
     return np.minimum(n, cap_n)
 
 

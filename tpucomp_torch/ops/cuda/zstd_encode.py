@@ -1,5 +1,5 @@
 """Batched Zstandard encode: sort-matched candidates, exact-entropy tables,
-then the Hopper walk.
+then the Hopper kernels.
 
 Port of :mod:`tpucomp.ops.pallas.zstd_encode` (``_kernel`` in its modes
 ``hist`` and ``full``, ``_seq_tables``, ``_predef_fse_tab``,
@@ -11,17 +11,16 @@ the same sequences:
 
 * ``hist`` — the exact literal-byte histogram and the LL/ML/OF code
   histograms of the sequences the walk keeps, :func:`hist_kernel` (one warp
-  a chunk walks the sequences serially, and counts its steps);
+  a chunk walks the sequences serially);
 * ``full`` — one complete single-block frame: 4-stream Huffman literals (or
   raw ones), the sequences through three FSE state machines, and a raw-block
-  rewrite when that is not shorter, :func:`full_kernel`.  The serial walk
-  takes the chunks whose hist walk took at most :data:`WALK_BUDGET` steps;
-  a gated parse, one CTA a chunk, takes the others: every candidate
-  position tabulated at once (:func:`position_table_plain`), the chain the
-  cost gate gives (:func:`next_kept_plain`), rounds that add the repeat
-  offsets' keeps (:func:`gated_chain_plain`), the literal streams and the
-  FSE states from prefix sums (:func:`huf_offsets_plain`,
-  :func:`fse_states_plain`, :func:`frame_from_parse_plain`).
+  rewrite when that is not shorter, :func:`full_kernel`: a gated parse, one
+  CTA a chunk, with every candidate position tabulated at once
+  (:func:`position_table_plain`), the chain the cost gate gives
+  (:func:`next_kept_plain`), rounds that add the repeat offsets' keeps
+  (:func:`gated_chain_plain`), the literal streams and the FSE states from
+  prefix sums (:func:`huf_offsets_plain`, :func:`fse_states_plain`,
+  :func:`frame_from_parse_plain`).
 
 Between them, in torch ops over the batch, :func:`seq_tables` builds each
 chunk's FSE tables (custom where they pay, else the predefined ones) and
@@ -51,13 +50,10 @@ from tpucomp_torch.ops import match
 from tpucomp_torch.ops.cuda import _build
 from tpucomp_torch.ops.cuda.deflate_encode import _frames, _int32, _rows
 from tpucomp_torch.ops.cuda.lz4_encode2 import _clamped_sizes, _match_len
+from tpucomp_torch.ops.cuda.lz_parse import _common_prefix
 
 MIN_MATCH = 4
 MAX_CAP = 65536   # 16-bit (ll, ml - 3) packing; wider chunks take the multi-block encoder
-# the full kernel walks a chunk whose hist walk took at most this many steps
-# (candidates visited) and parses the others: a walk is latency-bound, a
-# chunk's parse costs about what 500 steps of the walk do
-WALK_BUDGET = 512
 
 # ---- the constant table: code lookups and the packed predefined encoders ----------
 # zstd's own LL_Code[64] / ML_Code[128] (beyond them: the high bit plus a delta)
@@ -423,34 +419,6 @@ def _hibit(v: np.ndarray) -> np.ndarray:
     return np.frexp(np.maximum(v, 1).astype(np.float64))[1].astype(np.int64) - 1
 
 
-def _match_lengths(buf: np.ndarray, size: int, a: np.ndarray, c: np.ndarray) -> np.ndarray:
-    """Per element, the common-prefix length of the bytes at ``a`` and at
-    ``c < a``, up to the chunk's end (no cap): 8 bytes a step for the first
-    64, then, for what is left, the first byte at or past ``a + 64`` that
-    differs from the one its distance before (one pass a distance)."""
-    cap = size - a
-    n = np.zeros(a.shape, np.int64)
-    words = np.lib.stride_tricks.sliding_window_view(buf, 8).copy().view("<u8")[:, 0]
-    live = np.nonzero(cap > 0)[0]
-    for k in range(0, 64, 8):
-        if not live.size:
-            break
-        x = words[a[live] + k] ^ words[c[live] + k]
-        low = (x & (~x + np.uint64(1))).astype(np.float64)     # the lowest set bit
-        first = np.where(x != 0, np.log2(np.maximum(low, 1)).astype(np.int64) >> 3, 8)
-        n[live] = k + first
-        live = live[(x == 0) & (k + 8 < cap[live])]
-    dist = a[live] - c[live]
-    for d in np.unique(dist):
-        sel = live[dist == d]
-        idx = np.arange(d, size)
-        mis = np.where(buf[d:size] == buf[:size - d], size, idx)
-        nf = np.minimum.accumulate(mis[::-1])[::-1]             # first mismatch at or past x
-        start = a[sel] + 64
-        n[sel] = np.where(start < size, nf[np.minimum(start, size - 1) - d], size) - a[sel]
-    return np.minimum(n, cap)
-
-
 def position_table_plain(row: torch.Tensor, size: int, cand: torch.Tensor,
                          cand8: torch.Tensor) -> dict:
     """The full kernel's per-position pass, for one chunk (``row uint8[cap]``,
@@ -471,12 +439,15 @@ def position_table_plain(row: torch.Tensor, size: int, cand: torch.Tensor,
     p4 = np.where(c4 >= 0, c4, c8)
     p8 = np.where(c8 >= 0, c8, p4)
     two = isc & (p8 != p4)
+    words = np.lib.stride_tricks.sliding_window_view(buf, 8).copy().view("<u8")[:, 0]
     at = np.nonzero(isc)[0]
     la = np.zeros(mflimit, np.int64)
-    la[at] = _match_lengths(buf, size, pos[at] + MIN_MATCH, p4[at] + MIN_MATCH)
+    la[at] = _common_prefix(words, pos[at] + MIN_MATCH, p4[at] + MIN_MATCH,
+                            size - (pos[at] + MIN_MATCH), row=buf[:size])
     lb = la.copy()
     tw = np.nonzero(two)[0]
-    lb[tw] = _match_lengths(buf, size, pos[tw] + MIN_MATCH, p8[tw] + MIN_MATCH)
+    lb[tw] = _common_prefix(words, pos[tw] + MIN_MATCH, p8[tw] + MIN_MATCH,
+                            size - (pos[tw] + MIN_MATCH), row=buf[:size])
     src = np.where(two & (lb > la), p8, p4)
     lf = MIN_MATCH + np.maximum(la, lb)
     c = np.where(isc, pos - src, 0)
@@ -720,9 +691,9 @@ def full_plain(data, sizes, cands, meta, tree, fse_tab, nc, out_cap: int):
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def _inputs(data, sizes, cands) -> list:
-    """The checked launch arguments both modes share: data, sizes, the three
-    candidate arrays, B, cap, the sequence capacity, the constant table."""
+def _inputs(data, sizes, cands, n_cands: int) -> list:
+    """The checked launch arguments both modes start with: data, sizes and
+    the first ``n_cands`` candidate arrays."""
     if data.device.type != "cuda":
         raise ValueError(f"the Zstandard encode kernel needs CUDA tensors, got {data.device}")
     if data.dtype != torch.uint8 or data.dim() != 2:
@@ -731,10 +702,8 @@ def _inputs(data, sizes, cands) -> list:
     if cap > MAX_CAP:
         raise ValueError(f"the Zstandard encode kernel supports cap <= {MAX_CAP}")
     cands = [_int32(name, t, (B, cap), data.device)
-             for name, t in zip(("cand", "cand8", "nxt"), cands)]
-    const = _const_on(data.device)
-    return [data.contiguous(), _clamped_sizes(data, sizes).contiguous(), *cands, B, cap,
-            _cap_seq(cap), const]
+             for name, t in zip(("cand", "cand8", "nxt")[:n_cands], cands)]
+    return [data.contiguous(), _clamped_sizes(data, sizes).contiguous(), *cands]
 
 
 @functools.cache
@@ -746,15 +715,20 @@ def _const_on(device) -> torch.Tensor:
 
 @functools.cache
 def _scratch_words() -> int:
-    """The parse's scratch a chunk, in int32 words (``csrc/zstd_encode.cu``)."""
+    """The parse's scratch a CTA, in int32 words (``csrc/zstd_encode.cu``)."""
     return _build.load("zstd_encode").tpucomp_zstd_encode_scratch_words()
 
 
-def _call(mode: str, argtypes: list, args: list, device) -> None:
-    """Launch mode ``mode``; ``args`` holds the tensors (passed as pointers)
-    and keeps them alive through the launch."""
+@functools.cache
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _call(mode: str, args: list, device) -> None:
+    """Launch mode ``mode`` on ``args`` (tensors go as pointers, which keeps
+    them alive through the launch; ints as ints)."""
     fn = getattr(_build.load("zstd_encode"), f"tpucomp_zstd_encode_{mode}")
-    fn.argtypes = [_P] * 5 + [_I, _I, _I, _P] + argtypes + [_P]
+    fn.argtypes = [_P if torch.is_tensor(a) else _I for a in args] + [_P]
     fn.restype = _I
     ptrs = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
     with torch.cuda.device(device):
@@ -763,49 +737,39 @@ def _call(mode: str, argtypes: list, args: list, device) -> None:
         raise RuntimeError(f"zstd_encode ({mode}) kernel launch failed: cudaError {rc}")
 
 
-def hist_kernel(data, sizes, cands, steps=None):
+def hist_kernel(data, sizes, cands):
     """Launch the ``hist`` walk of ``csrc/zstd_encode.cu`` over ``cands``
     (``match.candidates2``'s three tensors) on ``data``'s card, on the
-    current stream -> ``(freq int32[B, 256], sch int32[B, 121])``; each
-    chunk's walk steps (candidates visited) go to ``steps int32[B]`` when
-    it is given, for :func:`full_kernel`."""
-    args = _inputs(data, sizes, cands)
-    B, dev = data.shape[0], data.device
+    current stream -> ``(freq int32[B, 256], sch int32[B, 121])``."""
+    args = _inputs(data, sizes, cands, 3)
+    (B, cap), dev = data.shape, data.device
     freq = torch.empty((B, 256), dtype=torch.int32, device=dev)
     sch = torch.empty((B, 121), dtype=torch.int32, device=dev)
-    if steps is not None:
-        steps = _int32("steps", steps, (B,), dev)
-    _call("hist", [_P, _P, _P], args + [freq, sch, steps], dev)
+    _call("hist", args + [B, cap, _cap_seq(cap), _const_on(dev), freq, sch], dev)
     hist_kernel.launches += 1
     return freq, sch
 
 
-def full_kernel(data, sizes, cands, meta, tree, fse_tab, nc, out_cap: int, steps=None):
-    """Launch ``full`` against the tables of :func:`huf_meta` and
-    :func:`seq_tables` (or :func:`speed_tables`): the walk takes the chunks
-    whose ``hist`` walk took at most :data:`WALK_BUDGET` steps (``steps``
-    from :func:`hist_kernel`; none without it), the gated parse the others."""
-    args = _inputs(data, sizes, cands)
-    B, cap = data.shape
-    dev = data.device
+def full_kernel(data, sizes, cands, meta, tree, fse_tab, nc, out_cap: int):
+    """Launch the ``full`` parse against the tables of :func:`huf_meta` and
+    :func:`seq_tables` (or :func:`speed_tables`); it reads ``cands``' cand
+    and cand8.  One CTA an SM (at most B), each with a row of scratch."""
+    args = _inputs(data, sizes, cands, 2)
+    (B, cap), dev = data.shape, data.device
     if tree.shape != (B, fzstd.TREE_CAP) or tree.dtype != torch.uint8 or tree.device != dev:
         raise ValueError(f"tree must be uint8[{B}, {fzstd.TREE_CAP}] on {dev}")
     if nc.shape != (B, NC_CAP) or nc.dtype != torch.uint8 or nc.device != dev:
         raise ValueError(f"nc must be uint8[{B}, {NC_CAP}] on {dev}")
     tables = [_int32("meta", meta, (B, HUF_META), dev), tree.contiguous(),
               _int32("fse_tab", fse_tab, (B, FSE_TT), dev), nc.contiguous()]
-    cap_seq = _cap_seq(cap)
-    seqs = torch.empty((B, 2 * cap_seq), dtype=torch.int32, device=dev)
-    # the parse's per-position table and sequence records a chunk
-    scratch = torch.empty((B, _scratch_words()), dtype=torch.int32, device=dev)
-    if steps is not None:
-        steps = _int32("steps", steps, (B,), dev)
-    lits = torch.empty((B, max(cap, 1)), dtype=torch.uint8, device=dev)
+    # a CTA's per-position table, sequence records and literals
+    ctas = max(1, min(B, _sm_count(dev)))
+    scratch = torch.empty((ctas, _scratch_words()), dtype=torch.int32, device=dev)
     out = torch.empty((B, out_cap), dtype=torch.uint8, device=dev)
     osz = torch.empty((B,), dtype=torch.int32, device=dev)
     stat = torch.empty((B,), dtype=torch.int32, device=dev)
-    _call("full", [_P] * 8 + [_I, _P, _I, _P, _P],
-          args + tables + [seqs, lits, scratch, steps, WALK_BUDGET, out, out_cap, osz, stat], dev)
+    _call("full", args + [B, cap, _const_on(dev)] + tables
+          + [scratch, ctas, out, out_cap, osz, stat], dev)
     full_kernel.launches += 1
     return out, osz, stat
 
@@ -831,16 +795,14 @@ def compress_batch(data: torch.Tensor, sizes: torch.Tensor, out_cap: int,
     _check_cap(data)
     sizes = _clamped_sizes(data, sizes)
     cands = match.candidates2(data, sizes, window=MAX_CAP)
-    steps = None
     if exact_entropy:
-        steps = torch.empty((data.shape[0],), dtype=torch.int32, device=data.device)
-        freq, sch = hist_kernel(data, sizes, cands, steps)
+        freq, sch = hist_kernel(data, sizes, cands)
         fse_tab, nc = seq_tables(sch)
     else:
         freq = whole_chunk_hist(data, sizes)
         fse_tab, nc = speed_tables(data.shape[0], data.device)
     meta, tree = huf_meta(freq)
-    return full_kernel(data, sizes, cands, meta, tree, fse_tab, nc, out_cap, steps)
+    return full_kernel(data, sizes, cands, meta, tree, fse_tab, nc, out_cap)
 
 
 def compress_batch_plain(data: torch.Tensor, sizes: torch.Tensor, out_cap: int,
