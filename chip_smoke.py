@@ -47,15 +47,17 @@ exit code and no result line:
    speed rung, with its tables on the card against the CPU, and full (the
    gated parse) on the chunks of tests/zstd_walk_stress.py and mixed's
    64 KiB chunks 850 and 1000, also repeated past the card's SM count (a
-   CTA's scratch row reused); Deflate's emit kernel also on
-   tests/gdeflate_walk_stress.py's chunks with 32 KiB candidates and those
-   two mixed chunks, algos 1 and 2, at two out_caps; for GDeflate,
-   the hist and fixed/emit walks and the whole encode in algos 0/1/2 on the
+   CTA's scratch row reused); Deflate's hist and emit kernels (rows 11
+   and 12) also on tests/gdeflate_walk_stress.py's chunks with 32 KiB
+   candidates and those two mixed chunks, with matches and entropy only
+   (emit at two out_caps); for GDeflate, the hist kernel (row 16) on the
+   same chunks with 64 KiB candidates, with matches and entropy only,
+   the hist and fixed/emit kernels and the whole encode in algos 0/1/2 on the
    head chunks, the edge rows of tests/test_pallas_gdeflate.py and a 64 KiB
    row with distances above 49152, at out_cap = bound and 4096, with
    ``dyn_tables_gd``, ``schedule_and_assemble`` and ``tile_tables`` on the
    card against the CPU (each plain walk runs once; its lanes are assembled
-   at both out_caps), the fixed and emit walks also on the chunks of
+   at both out_caps), the fixed and emit kernels also on the chunks of
    tests/gdeflate_walk_stress.py (thinned candidates for back extensions,
    the 258 cap, matches ending around mflimit, sizes 0-8, 65535 and 65536,
    a 64 KiB run, a table of 15-bit codes that overflows a lane), then the
@@ -87,8 +89,9 @@ exit code and no result line:
    ``batched.compress("zstd")`` (rows 20-21, exact entropy) with its speed
    rung (``exact_entropy=False``), ``batched.compress`` /
    ``batched.decompress("gdeflate")`` in algos 0, 1, 2 (rows 13-14, 16-17;
-   tests/gdeflate_pyref.py reads three tiles of each; row 17's fixed and
-   emit ms a corpus on a line of their own), ``batched.compress`` /
+   tests/gdeflate_pyref.py reads three tiles of each; rows 16 and 17's
+   hist, fixed and emit ms a corpus on lines of their own, as rows 11 and
+   12's for Deflate), ``batched.compress`` /
    ``batched.decompress("ans")`` (rows 25, 23) with rows 24 and 22 through
    their own wrappers on the same chunks, ``batched.compress`` /
    ``batched.decompress("cascaded")`` (row 26) on three configurations of
@@ -783,28 +786,33 @@ def main() -> int:
                     lambda d, s, *r: deflate_encode.emit_plain(d, s, cands_of(r[:-4]), *r[-4:]),
                     a_cpu + tables + (cap,), f"{d_in.num_chunks} chunks, {how}, {label}")
 
-    # row 12 on tests/gdeflate_walk_stress.py's chunks with Deflate's 32 KiB
-    # candidates (back extensions to position 0 and to the anchor, cand8
-    # winning, the 258 cap, ends around mflimit, sizes 0-8, 65535, 65536, a
-    # 64 KiB run, a random 64 KiB row) and mixed's chunks 850 and 1000 (the
-    # literal-heavy fifth), with matches and entropy-only, at the bound and
-    # at an out_cap too small for most
+    # rows 11 and 12 on tests/gdeflate_walk_stress.py's chunks with
+    # Deflate's 32 KiB candidates (back extensions to position 0 and to the
+    # anchor, cand8 winning, the 258 cap, ends around mflimit, sizes 0-8,
+    # 65535, 65536, a 64 KiB run, a random 64 KiB row) and mixed's chunks 850
+    # and 1000 (the literal-heavy fifth), with matches and entropy-only; row
+    # 12 at the bound and at an out_cap too small for most
     mixed_tail = [(f"mixed_{k}", corpora["mixed"][k * CHUNK:(k + 1) * CHUNK]) for k in (850, 1000)]
     dws_rows = gws.rows() + mixed_tail
+    dws_names = [n for n, _ in dws_rows]
     dws = ChunkBatch.from_chunks([c for _, c in dws_rows], CHUNK, device="cpu")
-    dws_c = gws.candidates(dws, [n for n, _ in dws_rows], window=deflate_encode.WINDOW)
+    dws_c = gws.candidates(dws, dws_names, window=deflate_encode.WINDOW)
+    dws_label = f"{dws.num_chunks} walk stress chunks and mixed 850, 1000"
     for eo in (False, True):
-        wt = deflate_encode.dyn_tables(*deflate_encode.hist_plain(dws.data, dws.sizes,
-                                                                  None if eo else dws_c))
         wa = (dws.data, dws.sizes) + (() if eo else tuple(dws_c))
+        wt = deflate_encode.dyn_tables(*compare(
+            "deflate_encode_hist",
+            lambda d, s, *c, eo=eo: deflate_encode.hist_kernel(d, s, None if eo else c),
+            lambda d, s, *c, eo=eo: deflate_encode.hist_plain(d, s, None if eo else c),
+            wa, f"{dws_label}, {'entropy only' if eo else 'matches'}"))
         for cap in (dcap, 1024):
             compare("deflate_encode_emit",
                     lambda d, s, *r, eo=eo: deflate_encode.emit_kernel(
                         d, s, None if eo else tuple(r[:-4]), *r[-4:]),
                     lambda d, s, *r, eo=eo: deflate_encode.emit_plain(
                         d, s, None if eo else tuple(r[:-4]), *r[-4:]),
-                    wa + wt + (cap,), f"{dws.num_chunks} walk stress chunks and mixed 850, "
-                    f"1000, {'entropy only' if eo else 'matches'}, out_cap {cap}")
+                    wa + wt + (cap,), f"{dws_label}, {'entropy only' if eo else 'matches'}, "
+                    f"out_cap {cap}")
 
     # Zstandard encode: the hist and full walks on the head chunks, the edge
     # inputs of tests/test_pallas_zstd.py:25-36,198-226 and its 64 KiB
@@ -890,7 +898,7 @@ def main() -> int:
 
     lap("3 lz4, snappy, deflate, zstd")
 
-    # GDeflate encode: the hist and fixed/emit walks on the head chunks, the edge
+    # GDeflate encode: the hist and fixed/emit kernels on the head chunks, the edge
     # rows of tests/test_pallas_gdeflate.py:22-32 and a 64 KiB row with
     # distances above 49152 (:63-72), with and without matches; dyn_tables_gd,
     # schedule_and_assemble and the whole encode of each algo (out_cap = bound
@@ -939,6 +947,15 @@ def main() -> int:
                         a_cpu + (gtab[0],), f"{g_in.num_chunks} chunks, mode emit, {how}")
         glanes[2 if eo else 1] = (lanes, (torch.where(gtab[3], 2, 1).to(torch.int32),
                                           gtab[1], gtab[2]))
+    # row 16 on the walk stress chunks and mixed's chunks 850 and 1000 with
+    # the 64 KiB candidates, with matches and entropy only
+    gws_c = gws.candidates(dws, dws_names)
+    for eo in (False, True):
+        compare("gdeflate_encode_hist",
+                lambda d, s, *c, eo=eo: gdeflate_encode.hist_kernel(d, s, None if eo else c),
+                lambda d, s, *c, eo=eo: gdeflate_encode.hist_plain(d, s, None if eo else c),
+                (dws.data, dws.sizes) + (() if eo else tuple(gws_c)),
+                f"{dws_label}, {'entropy only' if eo else 'matches'}")
     # row 17 on tests/gdeflate_walk_stress.py's chunks: back extensions to
     # position 0 and to the anchor (thinned candidates), cand8 winning, the
     # 258 cap with and without back extension, matches ending around
@@ -1576,6 +1593,7 @@ def main() -> int:
         return interop.libdeflate_decompress(f_r[0], len(f_r[1])) == f_r[1]
 
     win = deflate_encode.WINDOW
+    row11 = {}   # corpus -> row 11's ms: hist in algos 1 and 2
     row12 = {}   # corpus -> row 12's ms: emit in algos 1 and 2
     for (name, algo), (comp, cst, dec, dst) in dresults.items():
         cb = batches[name]
@@ -1616,6 +1634,7 @@ def main() -> int:
             t_hist = time_ms(torch, lambda: deflate_encode.hist_kernel(cb.data, sizes, cands))
             t_emit = time_ms(torch, lambda: deflate_encode.emit_kernel(cb.data, sizes, cands,
                                                                        *tables, dcap))
+            row11.setdefault(name, {})[f"hist_algo{algo}_ms"] = t_hist
             row12.setdefault(name, {})[f"emit_algo{algo}_ms"] = t_emit
             row.update(hist_kernel_ms=t_hist,
                        dyn_tables_ms=time_ms(torch, lambda: deflate_encode.dyn_tables(llh, dh)),
@@ -1786,11 +1805,14 @@ def main() -> int:
         row["compress_GBps"] = raw_bytes / row["compress_ms"] / 1e6
         row["speed_compress_GBps"] = raw_bytes / row["speed_compress_ms"] / 1e6
         print(f"[full] {json.dumps(row)}")
+    print(f"[row11] Deflate hist kernel ms a corpus of 1024 x 64 KiB (mean of {ITERS} calls): "
+          f"{json.dumps(row11)}")
     print(f"[row12] Deflate emit kernel ms a corpus of 1024 x 64 KiB (mean of {ITERS} calls): "
           f"{json.dumps(row12)}")
     print(f"[row21] Zstandard full kernel ms a corpus of 1024 x 64 KiB (mean of {ITERS} calls; "
           f"exact entropy and the speed rung): {json.dumps(row21)}")
     lap("4 checks and timings, lz4 to zstd")
+    row16 = {}   # corpus -> row 16's ms: hist in algos 1 and 2
     row17 = {}   # corpus -> row 17's ms: fixed (algo 0), emit (algos 1 and 2)
     for (name, algo), (comp, cst, dec, dst) in gresults.items():
         cb = batches[name]
@@ -1840,6 +1862,7 @@ def main() -> int:
                              **gtimes)
             t_emit = time_ms(torch, lambda: gdeflate_encode.emit_kernel(cb.data, sizes, cands,
                                                                         tab), **gtimes)
+            row16.setdefault(name, {})[f"hist_algo{algo}_ms"] = t_hist
             row17.setdefault(name, {})[f"emit_algo{algo}_ms"] = t_emit
             row.update(hist_kernel_ms=t_hist, emit_kernel_ms=t_emit,
                        dyn_tables_gd_ms=time_ms(
@@ -1866,6 +1889,8 @@ def main() -> int:
         row["compress_GBps"] = raw_bytes / row["compress_ms"] / 1e6
         row["decompress_GBps"] = raw_bytes / row["decompress_ms"] / 1e6
         print(f"[full] {json.dumps(row)}")
+    print(f"[row16] GDeflate hist kernel ms a corpus of 1024 x 64 KiB "
+          f"(mean of {GD_ITERS} calls): {json.dumps(row16)}")
     print(f"[row17] GDeflate fixed and emit kernel ms a corpus of 1024 x 64 KiB "
           f"(mean of {GD_ITERS} calls): {json.dumps(row17)}")
     print(f"[full] peak device memory of the main-path run: {peak} bytes")

@@ -278,12 +278,25 @@ def test_deflate_encode_kernels_equal_plain(card, algo, out_cap):
     assert _equal((got.data, got.sizes), (want.data, want.sizes))
 
 
-def test_deflate_hist_kernel_and_dyn_tables_on_card(card):
-    cb = _batch(65536, seed=11, short_sizes=(0, 1, 3, 4, 5, 20))
-    cands = match.candidates2(cb.data, cb.sizes, window=deflate_encode.WINDOW)
+@pytest.mark.parametrize("entropy_only", [False, True])
+@pytest.mark.parametrize("rows", ["batch", "walk stress"])
+def test_deflate_hist_kernel_and_dyn_tables_on_card(card, rows, entropy_only):
+    """Row 11 (the parse of ``csrc/lz_parse.cuh`` and its symbol counts; a
+    byte histogram for entropy only) against ``hist_plain``'s walk, on the
+    corpus and edge rows and on ``tests/gdeflate_walk_stress.py``'s (sizes
+    0-8, 65535 and 65536, a 64 KiB run of one byte, a random 64 KiB row,
+    back extensions, the 258 cap) with Deflate's 32 KiB candidates."""
+    if rows == "batch":
+        cb = _batch(65536, seed=11, short_sizes=(0, 1, 3, 4, 5, 20))
+        cands = match.candidates2(cb.data, cb.sizes, window=deflate_encode.WINDOW)
+    else:
+        cb, names = gws.batch()
+        cands = gws.candidates(cb, names, window=deflate_encode.WINDOW)
+    if entropy_only:
+        cands = None
     want = deflate_encode.hist_plain(cb.data, cb.sizes, cands)
     got = deflate_encode.hist_kernel(cb.data.to(card), cb.sizes.to(card),
-                                     [c.to(card) for c in cands])
+                                     None if cands is None else [c.to(card) for c in cands])
     assert _equal(got, want)
     assert _equal(deflate_encode.dyn_tables(*got), deflate_encode.dyn_tables(*want))
 
@@ -556,18 +569,23 @@ def test_gdeflate_walk_kernels_equal_plain(card, algo):
         assert _equal((got.data, got.sizes, gst), (want.data, want.sizes, wst))
 
 
-@pytest.mark.parametrize("case", ["fixed", "emit", "entropy_only", "long_codes"])
+@pytest.mark.parametrize("case", ["fixed", "emit", "entropy_only", "long_codes", "hist",
+                                  "hist_entropy_only"])
 def test_gdeflate_parse_kernels_equal_plain_on_stress_rows(card, case):
-    """Row 17 on ``tests/gdeflate_walk_stress.py``: back extensions to
-    position 0 and to the anchor (thinned candidates), cand8 winning, the
-    258 cap with and without back extension, matches ending around
-    mflimit, sizes 0-8, 65535 and 65536, a 64 KiB run; ``long_codes``
-    pushes the random row's lanes past 832 words."""
+    """Rows 16 (hist) and 17 (fixed, emit) on ``tests/gdeflate_walk_stress.py``:
+    back extensions to position 0 and to the anchor (thinned candidates),
+    cand8 winning, the 258 cap with and without back extension, matches
+    ending around mflimit, sizes 0-8, 65535 and 65536, a 64 KiB run of one
+    byte, a random 64 KiB row; ``long_codes`` pushes the random row's lanes
+    past 832 words."""
     cb, names = gws.batch()
     d, s = cb.data.to(card), cb.sizes.to(card)
-    cands = None if case == "entropy_only" else gws.candidates(cb, names)
+    cands = None if case.endswith("entropy_only") else gws.candidates(cb, names)
     gc = None if cands is None else [c.to(card) for c in cands]
-    if case == "fixed":
+    if case.startswith("hist"):
+        got = gdeflate_encode.hist_kernel(d, s, gc)
+        want = gdeflate_encode.hist_plain(cb.data, cb.sizes, cands)
+    elif case == "fixed":
         got = gdeflate_encode.fixed_kernel(d, s, gc)
         want = gdeflate_encode.fixed_plain(cb.data, cb.sizes, cands)
     else:

@@ -1,25 +1,27 @@
-"""The Deflate emit kernel's and the Zstandard full kernel's plain pieces
-against the serial walks, on the CPU.
+"""The Deflate hist and emit kernels' and the Zstandard full kernel's plain
+pieces against the serial walks, on the CPU.
 
-Row 12 (``csrc/deflate_encode.cu``'s emit kernel) parses a chunk as
-GDeflate's row 17 does (``csrc/lz_parse.cuh``; plain versions
-``lz_parse.next_tokens_plain`` and ``path_plain``) and places every token's
-codes by one prefix sum (``deflate_encode.stream_from_path_plain``).  Row 21
+Rows 11 and 12 (``csrc/deflate_encode.cu``'s hist and emit kernels) parse a
+chunk as GDeflate's rows 16-17 do (``csrc/lz_parse.cuh``; plain versions
+``lz_parse.next_tokens_plain`` and ``path_plain``); row 11 counts the
+tokens' symbols (``lz_parse.hist_from_path_plain``), row 12 places every
+token's codes by one prefix sum (``deflate_encode.stream_from_path_plain``).  Row 21
 (``csrc/zstd_encode.cu``'s parse) tabulates every candidate position
 (``zstd_encode.position_table_plain``), follows the chain the cost gate
 gives (``next_kept_plain``) and adds the repeat-offset keeps
 (``gated_chain_plain``), and builds the literal streams and the sequence
 stream from prefix sums (``huf_offsets_plain``, ``fse_states_plain``,
 ``frame_from_parse_plain``).  Here the pieces are held against the serial
-walks ``deflate_encode._walk`` and ``zstd_encode._walk`` and the frames
-against ``emit_plain`` and ``full_plain`` (the yardsticks the kernels are
+walks ``deflate_encode._walk`` and ``zstd_encode._walk`` (and its counts,
+``deflate_encode._hist_chunk``) and the frames against ``emit_plain`` and
+``full_plain`` (the yardsticks the kernels are
 held against on the card), on ``tests/gdeflate_walk_stress.py``'s chunks
 (with Deflate's 32 KiB candidates), ``tests/zstd_walk_stress.py``'s and
 8 KiB rows of the mixed and mortgage corpora, two of them from mixed's
 literal-heavy last fifth, where the gate turns down almost every candidate.
 No reference call: the CPU tests of ``tests/test_torch_deflate.py`` and
 ``tests/test_torch_zstd_encode.py`` hold the walks against the reference.
-Tolerance: exact (positions, sequences, bytes, statuses).
+Tolerance: exact (positions, sequences, counts, bytes, statuses).
 """
 import numpy as np
 import pytest
@@ -137,6 +139,24 @@ def test_deflate_stream_from_path_is_emit_plain(deflate_rows, which, how):
         got = de._frames(frames, out_cap, "cpu")
         want = de.emit_plain(cb.data, cb.sizes, cands, tab, hw, hb, out_cap)
         assert all(torch.equal(g, w) for g, w in zip(got, want)), out_cap
+
+
+@pytest.mark.parametrize("which", ["stress", "corpora"])
+@pytest.mark.parametrize("how", ["matches", "entropy only"])
+def test_deflate_hist_from_path_is_the_walks(deflate_rows, which, how):
+    """Row 11's counting phase over the parse's matches (the bytes no match
+    covers, each match's length and distance symbols, EOB once) gives the
+    serial walk's counts, with the 32 KiB candidates and entropy only (no
+    matches: every byte a literal)."""
+    ps = deflate_rows[which]
+    cb = ps["cb"]
+    for i, name in enumerate(ps["names"]):
+        size = int(cb.sizes[i])
+        row = cb.data[i].numpy().tobytes()
+        matches, (toks, tail) = ((ps["paths"][i][0], ps["walks"][i]) if how == "matches"
+                                 else ([], ([], 0)))
+        got = lz_parse.hist_from_path_plain(row, size, matches, 30, 1)
+        assert got == de._hist_chunk(row, size, toks, tail), name
 
 
 # --- Zstandard (row 21) ------------------------------------------------------------------

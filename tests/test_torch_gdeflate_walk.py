@@ -1,16 +1,19 @@
 """The GDeflate token parse's plain pieces against the serial walk, on the CPU.
 
-The ``fixed`` and ``emit`` kernels of ``csrc/gdeflate_encode.cu`` do not walk
-a chunk's tokens one by one: they compute every position's next token at
-once (plain version ``lz_parse.next_tokens_plain``), follow the chain
-of next tokens from 0 and number the tokens (``path_plain``), and code and
-pack the tokens at once (``lanes_from_path_plain``).  Here those pieces are
-held against the serial walk ``deflate_encode._walk`` (its tokens) and the
-lanes against ``fixed_plain`` / ``emit_plain`` (the yardstick the kernels are
-held against on the card), on the chunks of ``tests/gdeflate_walk_stress.py``
+The kernels of ``csrc/gdeflate_encode.cu`` do not walk a chunk's tokens one
+by one: they compute every position's next token at once (plain version
+``lz_parse.next_tokens_plain``), follow the chain of next tokens from 0 and
+number the tokens (``path_plain``), and count the tokens' symbols
+(``hist``, ``lz_parse.hist_from_path_plain``) or code and pack the tokens
+at once (``fixed`` and ``emit``, ``lanes_from_path_plain``).  Here those
+pieces are held against the serial walk ``deflate_encode._walk`` (its tokens,
+and its counts ``gdeflate_encode._hist_chunk``) and the lanes against
+``fixed_plain`` / ``emit_plain`` (the yardstick the kernels are held against
+on the card), on the chunks of ``tests/gdeflate_walk_stress.py``
 and on mixed and mortgage chunks cut to 8 KiB.  No reference call: the
 CPU tests of ``tests/test_torch_gdeflate.py`` hold the walk against the
-reference.  Tolerance: exact (positions, lengths, distances, lane words).
+reference.  Tolerance: exact (positions, lengths, distances, counts, lane
+words).
 """
 import numpy as np
 import pytest
@@ -195,6 +198,24 @@ def test_lanes_from_path_equal_emit_plain(request, which, tables):
         assert int(want[2][names.index("random_64k")].max()) > ge.WCAP
     else:
         assert not over.any()
+
+
+@pytest.mark.parametrize("which", ["stress", "corpora"])
+@pytest.mark.parametrize("how", ["matches", "entropy only"])
+def test_hist_from_path_is_the_walks(request, which, how):
+    """Row 16's counting phase over the parse's matches (the bytes no match
+    covers, each match's length and GDeflate distance symbols, no EOB) gives
+    the serial walk's counts, with the 64 KiB candidates and entropy only
+    (no matches: every byte a literal)."""
+    ps = request.getfixturevalue(which)
+    cb = ps["cb"]
+    for i, name in enumerate(ps["names"]):
+        size = int(cb.sizes[i])
+        row = cb.data[i].numpy().tobytes()
+        matches, (toks, tail) = ((ps["paths"][i][0], ps["walks"][i]) if how == "matches"
+                                 else ([], ([], 0)))
+        got = lz_parse.hist_from_path_plain(row, size, matches, 32, 0)
+        assert got == ge._hist_chunk(row, size, toks, tail), name
 
 
 def test_small_sizes_have_no_chain(stress):

@@ -1,6 +1,6 @@
-// Batched raw Deflate encode: the token walk, one warp per chunk, in the
-// modes fixed and hist of one kernel body, and emit as a parallel parse,
-// one CTA of 1024 threads a chunk.
+// Batched raw Deflate encode: the token walk, one warp a chunk (mode
+// fixed), and the parallel parse, one CTA of 1024 threads a chunk (modes
+// hist and emit).
 //
 // Replaces the TPU kernel tpucomp/ops/pallas/deflate_encode.py::_kernel in
 // its three trace-time modes: "fixed" (called by compress_batch at
@@ -10,8 +10,8 @@
 // (tpucomp_torch/ops/match.py::candidates2 with the 32 KiB window), which
 // gives for every position the nearest previous 4-byte match `cand`, an
 // 8-byte-prefix sort neighbour `cand8`, and `nxt`, the next position that has
-// either (all three null for entropy-only coding: no matches).  The walk is
-// the same in every mode, so the hist and emit passes see the same tokens:
+// either (all three null for entropy-only coding: no matches).  Every mode
+// sees the tokens of one walk, so the hist and emit passes agree:
 //
 //   nm = nxt[scan]; stop at nm >= mflimit = size - 3
 //   extend cand and cand8 forward, at most min(size - (nm + 4), 254) bytes;
@@ -21,11 +21,12 @@
 //   anchor = scan = nm2 + ml
 //
 // then the literals [anchor, size) and the end-of-block code.
-//  * fixed: header bits 011, literals and lengths in the closed-form fixed
-//    codes (8/9-bit literals, 7/8-bit length symbols, 5-bit distances),
-//    length and distance symbols from their bit lengths; EOB is 7 zero bits.
-//  * hist: counts of literal/length symbols (EOB once) and distance symbols
-//    into int32[B, 288] and int32[B, 30], zeroed first; no output bits.
+//  * fixed (the walk): header bits 011, literals and lengths in the
+//    closed-form fixed codes (8/9-bit literals, 7/8-bit length symbols,
+//    5-bit distances), length and distance symbols from their bit lengths;
+//    EOB is 7 zero bits.
+//  * hist (the parse): counts of literal/length symbols (EOB once) and
+//    distance symbols into int32[B, 288] and int32[B, 30]; no output bits.
 //  * emit (the parse): hdr_bits bits of hdr_words (LSB first) first, then
 //    every symbol from tab[sym] = bit-reversed code | length << 16
 //    (distances at 288+), EOB from tab[256].
@@ -47,21 +48,25 @@
 // byte once (B x out_cap, the zero tail included; hist writes B x 318
 // counts); the walk reads the candidate arrays only where it lands (the
 // parse reads cand and cand8 in full, which the bound does not count).
-// emit: csrc/lz_parse.cuh's parse of the chunk (its first 64 KiB, Deflate's
-// largest chunk: every position's next token at once, 32 merged chases of
-// next(), the tokens recomputed and numbered at once), then the stream from
-// the tokens' bit counts: one pass sums them (the header's bits first, the
-// end-of-block code last), so the stored rewrite and OUTPUT_BUFFER_TOO_SMALL
-// are decided before a bit is placed; a second codes the tokens in
-// super-rounds of 2048, a block scan of their bit counts places them, their
-// codes are or-ed into a ring of 4096 words in shared memory, and the
-// finished words go to the row.  Entropy-only coding has every byte a
-// literal token.  Design of the walk: a warp per chunk, all lanes carrying
-// the same walk state (broadcast loads, uniform branches), lane 0 storing
-// the stream's bytes; forward extension compares 32 bytes a step with a
-// ballot (warp_match_len); histograms live in the warp's shared memory (318
-// words); stored blocks are copied by the whole warp.  Both kernels write
-// every byte of the output row, so the caller's buffer needs no clearing.
+// hist and emit: csrc/lz_parse.cuh's parse of the chunk (its first 64 KiB,
+// Deflate's largest chunk: every position's next token at once, 32 merged
+// chases of next(), the tokens recomputed and numbered at once).  hist then
+// runs the counting phase both formats share (lz_parse.cuh's count_symbols:
+// the matches' symbols and a coverage bitmask of their bytes, then the
+// uncovered bytes a warp word at a time, warp-aggregated increments into 8
+// copies of the counts in shared memory); entropy only is the staged bytes'
+// histogram, with no parse.  emit then builds the stream from the tokens'
+// bit counts: one pass sums them (the header's bits first, the end-of-block
+// code last), so the stored rewrite and OUTPUT_BUFFER_TOO_SMALL are decided
+// before a bit is placed; a second codes the tokens in super-rounds of 2048,
+// a block scan of their bit counts places them, their codes are or-ed into a
+// ring of 4096 words in shared memory, and the finished words go to the row.
+// Entropy-only coding has every byte a literal token.  Design of the walk: a
+// warp per chunk, all lanes carrying the same walk state (broadcast loads,
+// uniform branches), lane 0 storing the stream's bytes; forward extension
+// compares 32 bytes a step with a ballot (warp_match_len); stored blocks are
+// copied by the whole warp.  The fixed and emit kernels write every byte of
+// the output row, so the caller's buffer needs no clearing.
 
 #include <cstdint>
 
@@ -72,6 +77,8 @@
 
 namespace {
 
+using lzp::dist_sym;
+using lzp::len_sym;
 constexpr int kSuccess = 0;
 constexpr int kOutputTooSmall = 15;
 constexpr int kMinMatch = 4;
@@ -80,36 +87,8 @@ constexpr int kWarpsPerBlock = 4;
 constexpr int kNTab = 288 + 30;
 constexpr int kHdrWords = 80;
 
-enum Mode { kFixed = 0, kHist = 1 };
-
 __device__ __forceinline__ uint32_t rev_bits(uint32_t v, int n) {
   return n ? __brev(v) >> (32 - n) : 0u;
-}
-
-// Match length -> length symbol index 0..28, extra bit count and value.
-__device__ __forceinline__ void len_sym(int ml, int& li, int& e, int& ev) {
-  const int m = ml - 3;
-  if (m < 8) {
-    li = m, e = 0, ev = 0;
-  } else if (ml == kMaxMatch) {
-    li = 28, e = 0, ev = 0;
-  } else {
-    e = 29 - __clz(m);  // bit length - 3
-    li = ((e + 1) << 2) | ((m >> e) - 4);
-    ev = m & ((1 << e) - 1);
-  }
-}
-
-// Distance -> distance symbol 0..29, extra bit count and value.
-__device__ __forceinline__ void dist_sym(int dist, int& di, int& e, int& ev) {
-  const int d = dist - 1;
-  if (d < 4) {
-    di = d, e = 0, ev = 0;
-  } else {
-    e = 30 - __clz(d);  // bit length - 2
-    di = ((e + 1) << 1) | ((d >> e) - 2);
-    ev = d & ((1 << e) - 1);
-  }
 }
 
 // The LSB-first bit stream into one output row; every lane holds the same
@@ -137,50 +116,30 @@ struct BitOut {
   }
 };
 
-template <int M>
-struct Sink {
-  BitOut bits;
-  int32_t* tab;  // hist: counts (288 litlen, then 30 dist)
-  int lane;
-  __device__ __forceinline__ void lit(int v) {
-    if (M == kHist) {
-      if (lane == 0) ++tab[v];
-    } else {
-      bits.put(v < 144 ? rev_bits(0x30 + v, 8) : rev_bits(0x190 + v - 144, 9), v < 144 ? 8 : 9);
-    }
-  }
-  __device__ __forceinline__ void match(int ml, int dist) {
-    int li, e, ev, di, de, dv;
-    len_sym(ml, li, e, ev);
-    dist_sym(dist, di, de, dv);
-    if (M == kHist) {
-      if (lane == 0) {
-        ++tab[257 + li];
-        ++tab[288 + di];
-      }
-      return;
-    }
-    const int lsym = 257 + li;
-    const bool short_code = lsym < 280;
-    const int n = short_code ? 7 : 8;
-    bits.put(rev_bits(short_code ? lsym - 256 : 0xC0 + lsym - 280, n), n);
-    bits.put(ev, e);
-    bits.put(rev_bits(di, 5), 5);
-    bits.put(dv, de);
-  }
-  __device__ __forceinline__ void lits(const uint8_t* in, int a, int b) {
-    for (int i = a; i < b; ++i) lit(in[i]);
-  }
-};
+// A literal's and a match's fixed codes.
+__device__ __forceinline__ void put_lit(BitOut& bits, int v) {
+  bits.put(v < 144 ? rev_bits(0x30 + v, 8) : rev_bits(0x190 + v - 144, 9), v < 144 ? 8 : 9);
+}
 
-template <int M>
+__device__ __forceinline__ void put_match(BitOut& bits, int ml, int dist) {
+  int li, e, ev, di, de, dv;
+  len_sym(ml, li, e, ev);
+  dist_sym(dist, di, de, dv);
+  const int lsym = 257 + li;
+  const bool short_code = lsym < 280;
+  const int n = short_code ? 7 : 8;
+  bits.put(rev_bits(short_code ? lsym - 256 : 0xC0 + lsym - 280, n), n);
+  bits.put(ev, e);
+  bits.put(rev_bits(di, 5), 5);
+  bits.put(dv, de);
+}
+
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-deflate_encode_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__ sizes,
-                      const int32_t* __restrict__ cand, const int32_t* __restrict__ cand8,
-                      const int32_t* __restrict__ nxt, int batch, int cap, int32_t* __restrict__ llh,
-                      int32_t* __restrict__ dh, uint8_t* __restrict__ out, int out_cap,
-                      int32_t* __restrict__ out_sizes, int32_t* __restrict__ statuses) {
-  __shared__ int32_t s_tab[kWarpsPerBlock][kNTab];
+deflate_fixed_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__ sizes,
+                     const int32_t* __restrict__ cand, const int32_t* __restrict__ cand8,
+                     const int32_t* __restrict__ nxt, int batch, int cap,
+                     uint8_t* __restrict__ out, int out_cap, int32_t* __restrict__ out_sizes,
+                     int32_t* __restrict__ statuses) {
   const int wi = threadIdx.x / 32;
   const int chunk = blockIdx.x * kWarpsPerBlock + wi;
   if (chunk >= batch) return;  // the whole warp leaves together
@@ -188,15 +147,9 @@ deflate_encode_kernel(const uint8_t* __restrict__ data, const int32_t* __restric
   const size_t row = static_cast<size_t>(chunk) * cap;
   const uint8_t* in = data + row;
   const int size = min(max(sizes[chunk], 0), cap);
-  int32_t* t = s_tab[wi];
-  for (int i = lane; i < kNTab; i += 32) t[i] = 0;
-  __syncwarp();
 
-  Sink<M> sink{{{M == kHist ? nullptr : out + static_cast<size_t>(chunk) * out_cap,
-                 M == kHist ? 0 : out_cap, lane},
-                0, 0, 0},
-               t, lane};
-  if (M == kFixed) sink.bits.put(0b011, 3);  // BFINAL = 1, BTYPE = 01
+  BitOut bits{{out + static_cast<size_t>(chunk) * out_cap, out_cap, lane}, 0, 0, 0};
+  bits.put(0b011, 3);  // BFINAL = 1, BTYPE = 01
 
   const int mflimit = size - kMinMatch + 1;
   int anchor = 0, scan = 0;
@@ -222,29 +175,17 @@ deflate_encode_kernel(const uint8_t* __restrict__ data, const int32_t* __restric
         --src2;
       }
       const int ml = min(nm - nm2 + kMinMatch + max(l4, l8), kMaxMatch);
-      sink.lits(in, anchor, nm2);
-      sink.match(ml, nm - src);
+      for (int i = anchor; i < nm2; ++i) put_lit(bits, in[i]);
+      put_match(bits, ml, nm - src);
       anchor = scan = nm2 + ml;
     }
   }
-  sink.lits(in, anchor, size);
+  for (int i = anchor; i < size; ++i) put_lit(bits, in[i]);
+  bits.put(0, 7);  // EOB: symbol 256, code 0
+  bits.flush();
 
-  if (M == kHist) {
-    if (lane == 0) ++t[256];  // EOB
-    __syncwarp();
-    for (int i = lane; i < kNTab; i += 32) {
-      if (i < 288)
-        llh[static_cast<size_t>(chunk) * 288 + i] = t[i];
-      else
-        dh[static_cast<size_t>(chunk) * 30 + i - 288] = t[i];
-    }
-    return;
-  }
-  sink.bits.put(0, 7);  // EOB: symbol 256, code 0
-  sink.bits.flush();
-
-  const tpucomp::OutRow& w = sink.bits.w;
-  int op = sink.bits.op;
+  const tpucomp::OutRow& w = bits.w;
+  int op = bits.op;
   const int n_blocks = max((size + 65534) / 65535, 1);
   if (size + 5 * n_blocks < op) {  // stored blocks are shorter: rewrite
     __syncwarp();                  // lane 0's stream bytes land before the copies
@@ -271,19 +212,6 @@ deflate_encode_kernel(const uint8_t* __restrict__ data, const int32_t* __restric
     out_sizes[chunk] = osz;
     statuses[chunk] = too_big ? kOutputTooSmall : kSuccess;
   }
-}
-
-template <int M>
-int launch(const uint8_t* data, const int32_t* sizes, const int32_t* cand,
-           const int32_t* cand8, const int32_t* nxt, int batch, int cap, int32_t* llh,
-           int32_t* dh, uint8_t* out, int out_cap, int32_t* out_sizes, int32_t* statuses,
-           void* stream) {
-  if (batch <= 0) return 0;
-  const int blocks = (batch + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  deflate_encode_kernel<M><<<blocks, kWarpsPerBlock * 32, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      data, sizes, cand, cand8, nxt, batch, cap, llh, dh, out, out_cap, out_sizes, statuses);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // ================================================================== emit ==
@@ -510,19 +438,21 @@ extern "C" int tpucomp_deflate_encode_fixed(const uint8_t* data, const int32_t* 
                                             const int32_t* nxt, int batch, int cap,
                                             uint8_t* out, int out_cap, int32_t* out_sizes,
                                             int32_t* statuses, void* stream) {
-  return launch<kFixed>(data, sizes, cand, cand8, nxt, batch, cap, nullptr, nullptr, out, out_cap,
-                        out_sizes, statuses, stream);
+  if (batch <= 0) return 0;
+  const int blocks = (batch + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  deflate_fixed_kernel<<<blocks, kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      data, sizes, cand, cand8, nxt, batch, cap, out, out_cap, out_sizes, statuses);
+  return static_cast<int>(cudaGetLastError());
 }
 
+// hist and emit read at most the first 64 KiB of a row.
 extern "C" int tpucomp_deflate_encode_hist(const uint8_t* data, const int32_t* sizes,
                                            const int32_t* cand, const int32_t* cand8,
                                            const int32_t* nxt, int batch, int cap,
                                            int32_t* llh, int32_t* dh, void* stream) {
-  return launch<kHist>(data, sizes, cand, cand8, nxt, batch, cap, llh, dh, nullptr, 0, nullptr,
-                       nullptr, stream);
+  return lzp::launch_hist<30, 1>(data, sizes, cand, cand8, nxt, batch, cap, llh, dh, stream);
 }
 
-// emit reads at most the first 64 KiB of a row.
 extern "C" int tpucomp_deflate_encode_emit(const uint8_t* data, const int32_t* sizes,
                                            const int32_t* cand, const int32_t* cand8,
                                            const int32_t* nxt, int batch, int cap,

@@ -1,22 +1,16 @@
-// Batched GDeflate encode: the token parse of a chunk and its emission into
-// 32 round-robin lane bit buffers.  Two kernels:
-//
-//  * the parse (modes fixed and emit): one CTA a chunk finds the chunk's
-//    tokens with per-position work in parallel and a cheap serial chain in
-//    shared memory, then emits them in parallel;
-//  * the walk (mode hist): one warp a chunk walks the tokens serially and
-//    counts their symbols.
+// Batched GDeflate encode: the token parse of a chunk, one CTA of 1024
+// threads a chunk, then its symbol counts (mode hist) or its emission into 32
+// round-robin lane bit buffers (modes fixed and emit).
 //
 // Replaces the TPU kernel tpucomp/ops/pallas/gdeflate_encode.py::_kernel in
 // its three trace-time modes: "fixed" and "emit" (called at
-// gdeflate_encode.py:471; algo 0, algos 1 and 2) by the parse, "hist"
-// (called at :453, algos 1 and 2) by the walk.  Match finding is not in
-// here: the caller first runs the sort-based candidate pass
-// (tpucomp_torch/ops/match.py::candidates2 with the 64 KiB window), which
-// gives for every position the nearest previous 4-byte match `cand`, an
-// 8-byte-prefix sort neighbour `cand8`, and `nxt`, the next position that
-// has either (all three null for entropy-only coding).  Both kernels see the
-// tokens of csrc/deflate_encode.cu's walk:
+// gdeflate_encode.py:471; algo 0, algos 1 and 2) and "hist" (called at :453,
+// algos 1 and 2).  Match finding is not in here: the caller first runs the
+// sort-based candidate pass (tpucomp_torch/ops/match.py::candidates2 with the
+// 64 KiB window), which gives for every position the nearest previous 4-byte
+// match `cand`, an 8-byte-prefix sort neighbour `cand8`, and `nxt`, the next
+// position that has either (all three null for entropy-only coding).  Every
+// mode sees the tokens of csrc/deflate_encode.cu's walk:
 //
 //   nm = nxt[scan]; stop at nm >= mflimit = size - 3
 //   extend cand and cand8 forward, at most min(size - (nm + 4), 254) bytes;
@@ -44,33 +38,33 @@
 // int32; hist B x 320).  The parse also reads cand and cand8 in full (8
 // bytes a position), which the bound does not count.
 //
-// The parse, one CTA of 1024 threads a chunk (its first 64 KiB at most), in
-// phases over its 227 KB of shared memory: 1-5 are csrc/lz_parse.cuh's
-// (staging, the next-token pass, next() elsewhere, the 32 merged chases,
-// the tokens recomputed and numbered), then
-//  6. emission in super-rounds of 64 rounds (2048 tokens): warp w codes
-//     rounds 64 g + 2 w and 64 g + 2 w + 1, token t in lane t & 31; a block
-//     scan down each lane's column gives the bit offsets; codes are or-ed
-//     into a 128-word ring a lane in shared memory, and each lane's finished
-//     words go to lw by one warp in contiguous stores; nb16 is stored 32
-//     tokens a warp store, the zero tails 16 bytes a thread store.
-// The walk for hist: a warp a chunk, all lanes carrying the same state; a
-// run of literals is counted by all lanes at once; histograms in shared
-// memory.
+// Every mode reads at most a row's first 64 KiB and runs phases 1-5 of
+// csrc/lz_parse.cuh over the CTA's 227 KB of shared memory (staging, the
+// next-token pass, next() elsewhere, the 32 merged chases, the tokens
+// recomputed and numbered), then
+//  * hist: the counting phase it shares with Deflate's hist
+//    (lz_parse.cuh's count_symbols and hist_kernel: the matches' symbols and
+//    a coverage bitmask of their bytes, then the uncovered bytes a warp word
+//    at a time, warp-aggregated increments into 8 copies of the counts);
+//    entropy only is the staged bytes' histogram, with no parse;
+//  * fixed / emit, phase 6: emission in super-rounds of 64 rounds (2048
+//    tokens): warp w codes rounds 64 g + 2 w and 64 g + 2 w + 1, token t in
+//    lane t & 31; a block scan down each lane's column gives the bit offsets;
+//    codes are or-ed into a 128-word ring a lane in shared memory, and each
+//    lane's finished words go to lw by one warp in contiguous stores; nb16 is
+//    stored 32 tokens a warp store, the zero tails 16 bytes a thread store.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
-#include "bytecopy.cuh"
 #include "lz_parse.cuh"
 
 namespace {
 
+using lzp::dist_sym;
+using lzp::len_sym;
 constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int kMinMatch = 4;
-constexpr int kMaxMatch = 258;
-constexpr int kMaxExt = kMaxMatch - kMinMatch;   // 254
 constexpr int kLanes = 32;
 constexpr int kNTab = 288 + 32;
 constexpr int kWCap = 832;
@@ -80,107 +74,9 @@ __device__ __forceinline__ uint32_t rev_bits(uint32_t v, int n) {
   return n ? __brev(v) >> (32 - n) : 0u;
 }
 
-// Match length -> length symbol index 0..28, extra bit count and value.
-__device__ __forceinline__ void len_sym(int ml, int& li, int& e, int& ev) {
-  const int m = ml - 3;
-  if (m < 8) {
-    li = m, e = 0, ev = 0;
-  } else if (ml == kMaxMatch) {
-    li = 28, e = 0, ev = 0;
-  } else {
-    e = 29 - __clz(m);  // bit length - 3
-    li = ((e + 1) << 2) | ((m >> e) - 4);
-    ev = m & ((1 << e) - 1);
-  }
-}
-
-// Distance (1..65536) -> GDeflate distance symbol 0..31, extra bits and value.
-__device__ __forceinline__ void dist_sym(int dist, int& dc, int& e, int& ev) {
-  const int d = dist - 1;
-  if (d < 4) {
-    dc = d, e = 0, ev = 0;
-  } else {
-    e = 30 - __clz(d);  // bit length - 2
-    dc = ((e + 1) << 1) | ((d >> e) - 2);
-    ev = d & ((1 << e) - 1);
-  }
-}
-
-// =================================================================== walk ==
-// hist: one warp a chunk, the serial walk.
-
-constexpr int kWarpsPerBlock = 4;
-
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-gdeflate_hist_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__ sizes,
-                     const int32_t* __restrict__ cand, const int32_t* __restrict__ cand8,
-                     const int32_t* __restrict__ nxt, int batch, int cap,
-                     int32_t* __restrict__ llh, int32_t* __restrict__ dh) {
-  __shared__ int32_t s_tab[kWarpsPerBlock][kNTab];
-  const int wi = threadIdx.x / 32;
-  const int chunk = blockIdx.x * kWarpsPerBlock + wi;
-  if (chunk >= batch) return;  // the whole warp leaves together
-  const int lane = threadIdx.x & 31;
-  const size_t row = static_cast<size_t>(chunk) * cap;
-  const uint8_t* in = data + row;
-  const int size = min(max(sizes[chunk], 0), cap);
-  int32_t* t_ = s_tab[wi];
-  for (int i = lane; i < kNTab; i += 32) t_[i] = 0;
-  __syncwarp();
-
-  // literals [a, b): each lane counts every 32nd
-  auto lits = [&](int a, int b) {
-    for (int k = lane; k < b - a; k += 32) atomicAdd(&t_[in[a + k]], 1);
-  };
-  const int mflimit = size - kMinMatch + 1;
-  int anchor = 0, scan = 0;
-  if (nxt != nullptr) {
-    const int32_t* c4 = cand + row;
-    const int32_t* c8 = cand8 + row;
-    const int32_t* nx = nxt + row;
-    while (scan < mflimit) {
-      const int nm = nx[scan];
-      if (nm >= mflimit) break;  // no usable match left: the rest is literal
-      const int c4p = c4[nm], c8p = c8[nm];
-      const int p4 = c4p >= 0 ? c4p : c8p;
-      const int p8 = c8p >= 0 ? c8p : p4;
-      const int fcap = min(size - (nm + kMinMatch), kMaxExt);
-      const int l4 = tpucomp::warp_match_len(in, nm + kMinMatch, p4 + kMinMatch, fcap, lane);
-      const int l8 = p8 != p4
-                         ? tpucomp::warp_match_len(in, nm + kMinMatch, p8 + kMinMatch, fcap, lane)
-                         : l4;
-      const int src = l8 > l4 ? p8 : p4;
-      int nm2 = nm, src2 = src;
-      while (nm2 > anchor && src2 > 0 && in[nm2 - 1] == in[src2 - 1]) {
-        --nm2;
-        --src2;
-      }
-      const int ml = min(nm - nm2 + kMinMatch + max(l4, l8), kMaxMatch);
-      lits(anchor, nm2);
-      int li, e, ev, dc, de, dv;
-      len_sym(ml, li, e, ev);
-      dist_sym(nm - src, dc, de, dv);
-      if (lane == 0) {
-        atomicAdd(&t_[257 + li], 1);
-        atomicAdd(&t_[288 + dc], 1);
-      }
-      anchor = scan = nm2 + ml;
-    }
-  }
-  lits(anchor, size);
-
-  __syncwarp();
-  for (int i = lane; i < kNTab; i += 32) {
-    if (i < 288)
-      llh[static_cast<size_t>(chunk) * 288 + i] = t_[i];
-    else
-      dh[static_cast<size_t>(chunk) * 32 + i - 288] = t_[i];
-  }
-}
-
-// ================================================================== parse ==
+// =============================================================== emission ==
 // fixed / emit: one CTA a chunk, phases 1-5 of csrc/lz_parse.cuh, then the
-// emission.
+// emission (hist is lz_parse.cuh's hist_kernel).
 
 using lzp::kPThreads;
 using lzp::kPWarps;
@@ -420,7 +316,7 @@ int launch_parse(const uint8_t* data, const int32_t* sizes, const int32_t* cand,
 
 // Each launches on `stream` and returns cudaGetLastError() after the launch
 // (0 = ok).  cand, cand8 and nxt are all null for entropy-only coding.
-// fixed and emit read at most the first 64 KiB of a row.
+// Every mode reads at most the first 64 KiB of a row.
 extern "C" int tpucomp_gdeflate_encode_fixed(const uint8_t* data, const int32_t* sizes,
                                              const int32_t* cand, const int32_t* cand8,
                                              const int32_t* nxt, int batch, int cap,
@@ -434,13 +330,8 @@ extern "C" int tpucomp_gdeflate_encode_hist(const uint8_t* data, const int32_t* 
                                             const int32_t* cand, const int32_t* cand8,
                                             const int32_t* nxt, int batch, int cap,
                                             int32_t* llh, int32_t* dh, void* stream) {
-  if (batch <= 0) return 0;
-  const int blocks = (batch + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  gdeflate_hist_kernel<<<blocks, kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      data, sizes, cand, cand8, nxt, batch, cap, llh, dh);
-  return static_cast<int>(cudaGetLastError());
+  return lzp::launch_hist<32, 0>(data, sizes, cand, cand8, nxt, batch, cap, llh, dh, stream);
 }
-
 
 extern "C" int tpucomp_gdeflate_encode_emit(const uint8_t* data, const int32_t* sizes,
                                             const int32_t* cand, const int32_t* cand8,

@@ -46,7 +46,8 @@
 //     (global nxt/cand/cand8, shared bytes), and a block scan of the literal
 //     runs numbers the tokens.
 // The caller emits from the match records (pm: start | (ml - 3) << 16, dm:
-// distance - 1) and the token numbers.
+// distance - 1) and the token numbers, or counts their symbols
+// (count_symbols, the hist kernel of both formats).
 #pragma once
 
 #include <cstdint>
@@ -71,7 +72,8 @@ constexpr int kSmemMax = 232448;                     // a Hopper CTA's shared me
 
 // Shared memory of the Deflate parse, in bytes.  Region A: next() (u16 a
 // position) for phases 2-4, then the match records (Pm u32, Dm u16) from
-// phase 5 on, and from kEndDm to kBytesA the caller's emission scratch.
+// phase 5 on, and from kEndDm to kBytesA the caller's scratch (its
+// emission, or the counts of count_symbols).
 // Region B: the chunk's bytes (+16 for 8-byte reads at any position up to
 // the size).  Region C: the candidate bitmask and the suffix scan of its
 // words for phases 2-3, the chain's match starts as a bitmask for 4, as a
@@ -97,6 +99,34 @@ static_assert(kSmemBytes <= kSmemMax, "more shared memory than a Hopper CTA may 
 static_assert(kOffB % 16 == 0 && kOffC % 16 == 0, "cp.async needs 16-byte alignment");
 
 enum Misc { kM = 0, kTokens = 1, kOver = 2, kAux = 3 };
+
+// Match length (3..258) -> length symbol index 0..28 (litlen symbol 257 +
+// index), extra bit count and value; the same in Deflate and GDeflate.
+__device__ __forceinline__ void len_sym(int ml, int& li, int& e, int& ev) {
+  const int m = ml - 3;
+  if (m < 8) {
+    li = m, e = 0, ev = 0;
+  } else if (ml == kMaxMatch) {
+    li = 28, e = 0, ev = 0;
+  } else {
+    e = 29 - __clz(m);  // bit length - 3
+    li = ((e + 1) << 2) | ((m >> e) - 4);
+    ev = m & ((1 << e) - 1);
+  }
+}
+
+// Distance (1..65536) -> distance symbol, extra bit count and value: 0..29
+// up to Deflate's 32 KiB, GDeflate's codes 30 and 31 (14 extra bits) past it.
+__device__ __forceinline__ void dist_sym(int dist, int& di, int& e, int& ev) {
+  const int d = dist - 1;
+  if (d < 4) {
+    di = d, e = 0, ev = 0;
+  } else {
+    e = 30 - __clz(d);  // bit length - 2
+    di = ((e + 1) << 1) | ((d >> e) - 2);
+    ev = d & ((1 << e) - 1);
+  }
+}
 
 // Exclusive block scan of v in thread order under op (ident its identity).
 // Every thread of the CTA calls it; scr holds 32 ints.
@@ -659,6 +689,170 @@ cudaError_t raise_smem_limit(K kernel, int bytes, unsigned long long& raised) {
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e == cudaSuccess && dev < 64) raised |= 1ull << dev;
   return e;
+}
+
+// ================================================================= hist ==
+// The symbol counts of a chunk, the hist kernel of both formats (rows 11 and
+// 16): litlen symbols (literal bytes, 257 + length symbol, EOB at 256 when
+// the format has one) into bins 0..287, distance symbols into 288 + code.
+// The counts live in shared memory in kHistCopies copies, warp w adding to
+// copy w % kHistCopies, and a warp's lanes with one bin add once together
+// (warp_count: __match_any_sync and one atomicAdd a group): a 64 KiB run of
+// one byte costs 2048 shared atomics over 8 addresses, not 65536 on one.
+
+constexpr int kBins = 288 + 32;                      // litlen, then up to 32 distance codes
+constexpr int kHistCopies = 8;
+constexpr int kHistBytes = 4 * kHistCopies * kBins;
+// With matches: region A past the match records (free after phase 5)
+// holds the coverage bitmask of the matches' bytes, then the counts.
+constexpr int kOffCover = kEndDm;                    // u32 [kWords]
+constexpr int kOffHist = kOffCover + 4 * kWords;     // u32 [kHistCopies][kBins]
+static_assert(kOffHist + kHistBytes <= kBytesA, "region A overflows");
+// Entropy only (no parse): the bytes at 0, the counts after them.
+constexpr int kOffHistLit = kBytesB;
+constexpr int kSmemLitBytes = kOffHistLit + kHistBytes;
+static_assert(kOffHistLit % 16 == 0, "cp.async needs 16-byte alignment");
+
+// One count in bin `bin` of h for every lane (none where bin < 0); the whole
+// warp calls it.
+__device__ __forceinline__ void warp_count(uint32_t* h, int bin, int lane) {
+  const unsigned peers = __match_any_sync(kFull, bin);
+  if (bin >= 0 && lane == __ffs(peers) - 1) atomicAdd(h + bin, static_cast<unsigned>(__popc(peers)));
+}
+
+// The counting phase: a chunk's symbol counts into llh[0..288) and
+// dh[0..n_dist) (global), from its staged `bytes` and, where cover is not
+// null, deflate_parse's m match records (pm, dm).  Every thread calls it;
+// the first barrier also orders the caller's staging.
+//  a. the counts and the coverage bitmask are zeroed;
+//  b. each match counts its length and distance symbols and sets its bytes'
+//     bits in the bitmask: the words inside it by plain stores (no other
+//     match touches them), its two end words by atomicOr;
+//  c. each warp takes one word of the bitmask (32 positions) a step, four
+//     steps at once, and counts the bytes whose bit is clear; a word all
+//     covered is skipped, so a warp's share follows the positions, not the
+//     literal runs;
+//  d. the copies are summed into the output.
+template <int kNDist, int kEob>
+__device__ __forceinline__ void count_symbols(const uint8_t* bytes, const uint32_t* pm,
+                                              const uint16_t* dm, int m, uint32_t* cover,
+                                              uint32_t* hist, int size, int32_t* llh,
+                                              int32_t* dh, int tid, int lane, int wi) {
+  for (int i = tid; i < kHistCopies * kBins; i += kPThreads) hist[i] = 0;
+  if (cover)
+    for (int i = tid; i < kWords; i += kPThreads) cover[i] = 0;
+  __syncthreads();
+  uint32_t* h = hist + (wi % kHistCopies) * kBins;
+  if (kEob && tid == 0) atomicAdd(h + 256, static_cast<unsigned>(kEob));
+  for (int jb = wi * 32; jb < m; jb += kPThreads) {  // b. the matches
+    const int j = jb + lane;
+    int lbin = -1, dbin = -1;
+    if (j < m) {
+      const int s = static_cast<int>(pm[j] & 0xFFFF), ml = static_cast<int>(pm[j] >> 16) + 3;
+      int sym, e, ev;
+      len_sym(ml, sym, e, ev);
+      lbin = 257 + sym;
+      dist_sym(dm[j] + 1, sym, e, ev);
+      dbin = 288 + sym;
+      const int w0 = s >> 5, w1 = (s + ml - 1) >> 5;
+      const uint32_t m0 = kFull << (s & 31), m1 = kFull >> (31 - ((s + ml - 1) & 31));
+      if (w0 == w1) {
+        atomicOr(cover + w0, m0 & m1);
+      } else {
+        atomicOr(cover + w0, m0);
+        for (int w = w0 + 1; w < w1; ++w) cover[w] = kFull;
+        atomicOr(cover + w1, m1);
+      }
+    }
+    warp_count(h, lbin, lane);
+    warp_count(h, dbin, lane);
+  }
+  __syncthreads();
+  constexpr int kSteps = 4;  // c. the literals
+  const int nw = (size + 31) >> 5;
+  for (int w0 = wi; w0 < nw; w0 += kSteps * kPWarps) {
+    uint32_t cv[kSteps];
+    int bin[kSteps];
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) {
+      const int w = w0 + u * kPWarps, p = 32 * w + lane;
+      cv[u] = w >= nw ? kFull : cover ? cover[w] : 0u;
+      bin[u] = p < size && !((cv[u] >> lane) & 1) ? bytes[p] : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u)
+      if (cv[u] != kFull) warp_count(h, bin[u], lane);  // cv is the warp's: a uniform branch
+  }
+  __syncthreads();
+  for (int i = tid; i < 288 + kNDist; i += kPThreads) {  // d. the sum
+    uint32_t v = 0;
+#pragma unroll
+    for (int c = 0; c < kHistCopies; ++c) v += hist[c * kBins + i];
+    if (i < 288)
+      llh[i] = static_cast<int32_t>(v);
+    else
+      dh[i - 288] = static_cast<int32_t>(v);
+  }
+}
+
+// The hist kernel, one CTA a chunk (its first 64 KiB at most): with matches,
+// phases 1-5 of the parse and the counting phase; entropy only (kMatches
+// false), the staged bytes' histogram, two CTAs an SM.  llh int32[B, 288],
+// dh int32[B, kNDist].
+template <int kNDist, int kEob, bool kMatches>
+__global__ void __launch_bounds__(kPThreads, kMatches ? 1 : 2)
+hist_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__ sizes,
+            const int32_t* __restrict__ cand, const int32_t* __restrict__ cand8,
+            const int32_t* __restrict__ nxt, int cap, int32_t* __restrict__ llh,
+            int32_t* __restrict__ dh) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int chunk = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, wi = tid >> 5;
+  const size_t row = static_cast<size_t>(chunk) * cap;
+  // a row past the formats' largest chunk is counted over its first 64 KiB
+  // (the caller gives such a chunk ERROR_CHUNK_SIZE_TOO_LARGE)
+  const int size = min(max(sizes[chunk], 0), min(cap, kMaxPos));
+  int32_t* lh = llh + static_cast<size_t>(chunk) * 288;
+  int32_t* d = dh + static_cast<size_t>(chunk) * kNDist;
+  if constexpr (kMatches) {
+    stage_bytes(smem + kOffB, data + row, size, cap, tid);
+    deflate_parse(smem, cand + row, cand8 + row, nxt + row, size, true, tid, lane, wi);
+    count_symbols<kNDist, kEob>(smem + kOffB, reinterpret_cast<const uint32_t*>(smem + kOffPm),
+                                reinterpret_cast<const uint16_t*>(smem + kOffDm),
+                                reinterpret_cast<const int*>(smem + kOffMisc)[kM],
+                                reinterpret_cast<uint32_t*>(smem + kOffCover),
+                                reinterpret_cast<uint32_t*>(smem + kOffHist), size, lh, d, tid,
+                                lane, wi);
+  } else {
+    stage_bytes(smem, data + row, size, cap, tid);
+    count_symbols<kNDist, kEob>(smem, nullptr, nullptr, 0, nullptr,
+                                reinterpret_cast<uint32_t*>(smem + kOffHistLit), size, lh, d, tid,
+                                lane, wi);
+  }
+}
+
+// Launch the hist kernel on `stream` (the parse where nxt is not null, else
+// entropy only); returns cudaGetLastError() after the launch (0 = ok).
+template <int kNDist, int kEob>
+int launch_hist(const uint8_t* data, const int32_t* sizes, const int32_t* cand,
+                const int32_t* cand8, const int32_t* nxt, int batch, int cap, int32_t* llh,
+                int32_t* dh, void* stream) {
+  if (batch <= 0) return 0;
+  static unsigned long long raised[2] = {0, 0};  // one bit a device, a kernel each
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (nxt != nullptr) {
+    e = raise_smem_limit(hist_kernel<kNDist, kEob, true>, kSmemBytes, raised[0]);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    hist_kernel<kNDist, kEob, true><<<batch, kPThreads, kSmemBytes, st>>>(
+        data, sizes, cand, cand8, nxt, cap, llh, dh);
+  } else {
+    e = raise_smem_limit(hist_kernel<kNDist, kEob, false>, kSmemLitBytes, raised[1]);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    hist_kernel<kNDist, kEob, false><<<batch, kPThreads, kSmemLitBytes, st>>>(
+        data, sizes, nullptr, nullptr, nullptr, cap, llh, dh);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace lzp

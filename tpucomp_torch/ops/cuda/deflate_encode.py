@@ -1,4 +1,4 @@
-"""Batched raw Deflate encode: sort-matched candidates, then the Hopper walk.
+"""Batched raw Deflate encode: sort-matched candidates, then the Hopper kernels.
 
 Port of :mod:`tpucomp.ops.pallas.deflate_encode` (``_kernel`` in its three
 modes, ``_prep``, ``compress_batch``, ``_dyn_tables``, ``compress_batch_dyn``).
@@ -13,12 +13,16 @@ modes that see the same tokens:
   header from :func:`dyn_tables` (torch ops), :func:`emit_kernel`;
 
 and rewrites a stream longer than stored blocks as stored blocks.  ``fixed``
-and ``hist`` walk a chunk's tokens serially, one warp a chunk.  ``emit``
-parses a chunk in parallel, one CTA a chunk, as GDeflate's parse does
-(``csrc/lz_parse.cuh``; plain pieces in :mod:`tpucomp_torch.ops.cuda.lz_parse`),
-and places every token's codes by one prefix sum of their bit counts
-(:func:`stream_from_path_plain` is that emission's plain version); it reads
-at most a row's first 64 KiB (Deflate's largest chunk).
+walks a chunk's tokens serially, one warp a chunk.  ``hist`` and ``emit``
+parse a chunk in parallel, one CTA a chunk, as GDeflate's kernels do
+(``csrc/lz_parse.cuh``; plain pieces in :mod:`tpucomp_torch.ops.cuda.lz_parse`):
+``hist`` then counts the tokens' symbols in the counting phase it shares with
+GDeflate (``lz_parse.hist_from_path_plain`` is its plain version; entropy
+only, a byte histogram with no parse), and ``emit`` places every token's
+codes by one prefix sum of their bit counts (:func:`stream_from_path_plain`
+is that emission's plain version).  Both read at most a row's first 64 KiB
+(Deflate's largest chunk; ``batched.compress`` gives a larger chunk
+``ERROR_CHUNK_SIZE_TOO_LARGE``).
 :func:`compress_batch` is algo 0; :func:`compress_batch_dyn` is algo 1
 (hist, tables, emit) and, with ``entropy_only``, algo 2 (no matches).  The
 plain versions run the same walks in Python; the CPU tests hold them against
@@ -330,7 +334,7 @@ _FIXED_DC = assign_codes_np(FIXED_DIST_LENS, MAX_BITS)
 
 def dyn_tables(llh: torch.Tensor, dh: torch.Tensor):
     """Per-chunk dynamic Huffman tables and the packed block header from the
-    walk's exact histograms ``llh int32[B, 288]``, ``dh int32[B, 30]``
+    exact histograms ``llh int32[B, 288]``, ``dh int32[B, 30]``
     (``deflate_encode.py:564-657``), on their device.
 
     Returns ``(tab int32[B, 318], hdr_words int32[B, 80], hdr_bits
@@ -471,7 +475,11 @@ def fixed_kernel(data, sizes, cands, out_cap: int):
 
 
 def hist_kernel(data, sizes, cands):
-    """Launch the ``hist`` walk -> ``(llh int32[B, 288], dh int32[B, 30])``."""
+    """Launch the ``hist`` kernel -> ``(llh int32[B, 288], dh int32[B, 30])``:
+    the parse of each row's first 64 KiB and its symbol counts (EOB once),
+    or with ``cands`` None the bytes' histogram.  A row past 64 KiB is
+    counted over its first 64 KiB only (``batched.compress`` gives such a
+    chunk ``ERROR_CHUNK_SIZE_TOO_LARGE``); :func:`hist_plain` walks it whole."""
     args = _inputs(data, sizes, cands)
     llh = torch.empty((data.shape[0], 288), dtype=torch.int32, device=data.device)
     dh = torch.empty((data.shape[0], 30), dtype=torch.int32, device=data.device)
@@ -481,7 +489,7 @@ def hist_kernel(data, sizes, cands):
 
 
 def emit_kernel(data, sizes, cands, tab, hdr_words, hdr_bits, out_cap: int):
-    """Launch the ``emit`` walk against :func:`dyn_tables`' output."""
+    """Launch the ``emit`` kernel (the parse) against :func:`dyn_tables`' output."""
     args = _inputs(data, sizes, cands)
     B, dev = data.shape[0], data.device
     tables = [_int32("tab", tab, (B, NTAB), dev),
@@ -545,8 +553,8 @@ def compress_batch_dyn_plain(data: torch.Tensor, sizes: torch.Tensor, out_cap: i
 def compress_algo(data: torch.Tensor, sizes: torch.Tensor, opts, out_cap: int,
                   plain: bool = False):
     """The reference's algo ladder (``tpucomp/ops/pallas/__init__.py:214-232``):
-    ``opts.algo`` 0 fixed codes, 1 dynamic codes (hist walk, tables, emit
-    walk), 2 dynamic codes without matches.  ``plain`` runs the plain
+    ``opts.algo`` 0 fixed codes, 1 dynamic codes (hist, tables, emit), 2
+    dynamic codes without matches.  ``plain`` runs the plain
     versions."""
     algo = getattr(opts, "algo", 0) if opts is not None else 0
     if algo in (1, 2):

@@ -1,5 +1,5 @@
-"""Batched GDeflate encode: sort-matched candidates, the Hopper token parse
-and walk, the refill schedule and the tile assembly.
+"""Batched GDeflate encode: sort-matched candidates, the Hopper token parse,
+the refill schedule and the tile assembly.
 
 Port of :mod:`tpucomp.ops.pallas.gdeflate_encode` (``_kernel`` in its three
 modes, ``_prep``, ``_schedule_and_assemble``, ``_dyn_tables_gd``,
@@ -22,27 +22,28 @@ stored fallback.  :func:`compress_batch` is algo 0; :func:`compress_batch_dyn`
 is algo 1 (hist, tables, emit) and, with ``entropy_only``, algo 2 (no
 matches).
 
-``hist`` walks a chunk's tokens serially, one warp a chunk.  ``fixed`` and
-``emit`` parse a chunk in parallel, one CTA a chunk: the token that follows
-a scan position depends on that position alone, so every position's next
-token is computed at once (``lz_parse.next_tokens_plain`` is that pass's
-plain version), the chain of next tokens from 0 is found (32 chases from
-segment starts, joined by one lane) and its tokens numbered
-(``lz_parse.path_plain`` follows it from 0), and the tokens are coded and
-packed into the lanes at once (:func:`lanes_from_path_plain`;
-:func:`parse_lanes_plain` over a batch).  The plain versions of the whole
-modes (:func:`fixed_plain`, :func:`emit_plain`, :func:`hist_plain`) run the
-serial walk in Python; the CPU tests hold them against the reference and the
-parse pieces against the walk, and ``chip_smoke.py`` holds the kernels
-against them.
+Every mode parses a chunk in parallel, one CTA a chunk: the token that
+follows a scan position depends on that position alone, so every position's
+next token is computed at once (``lz_parse.next_tokens_plain`` is that
+pass's plain version), the chain of next tokens from 0 is found (32 chases
+from segment starts, joined by one lane) and its tokens numbered
+(``lz_parse.path_plain`` follows it from 0).  ``hist`` then counts the
+tokens' symbols in the counting phase it shares with Deflate's
+(``lz_parse.hist_from_path_plain``; entropy only, a byte histogram with no
+parse); ``fixed`` and ``emit`` code and pack the tokens into the lanes at
+once (:func:`lanes_from_path_plain`; :func:`parse_lanes_plain` over a batch).
+The plain versions of the whole modes (:func:`fixed_plain`,
+:func:`emit_plain`, :func:`hist_plain`) run the serial walk in Python; the
+CPU tests hold them against the reference and the parse pieces against the
+walk, and ``chip_smoke.py`` holds the kernels against them.
 
 Contract: ``data uint8[B, cap]`` plus ``sizes int32[B]`` (each in ``[0,
 cap]``; values outside are clamped) -> ``(out uint8[B, out_cap], out_sizes
 int32[B], statuses int32[B])``, tiles byte-identical to the reference's.  A
 tile longer than ``out_cap`` gives ``ERROR_OUTPUT_BUFFER_TOO_SMALL``, size 0
-and a zero row.  The ``fixed`` and ``emit`` kernels read at most a row's
-first 64 KiB (GDeflate's largest chunk; ``batched.compress`` gives a larger
-chunk ``ERROR_CHUNK_SIZE_TOO_LARGE``).
+and a zero row.  The kernels read at most a row's first 64 KiB (GDeflate's
+largest chunk; ``batched.compress`` gives a larger chunk
+``ERROR_CHUNK_SIZE_TOO_LARGE``).
 """
 from __future__ import annotations
 
@@ -205,10 +206,10 @@ def hist_plain(data, sizes, cands):
 
 
 # --- the parse's pieces, plain ------------------------------------------------------------
-# The fixed and emit kernels do not walk: they compute every position's next
-# token at once, follow the chain of next tokens from 0 (the plain versions
-# of those passes are ops/cuda/lz_parse.py's, shared with Deflate's emit),
-# and code the tokens at once.
+# The kernels do not walk: they compute every position's next token at
+# once, follow the chain of next tokens from 0 (the plain versions of those
+# passes are ops/cuda/lz_parse.py's, shared with Deflate's hist and emit),
+# and count or code the tokens at once.
 
 def lanes_from_path_plain(row: bytes, size: int, matches: list, numbers: list, tokens: int,
                           tab: list | None):
@@ -399,7 +400,7 @@ _FIXED_DC = assign_codes_np(FIXED_GDIST_LENS, MAX_BITS)
 
 def dyn_tables_gd(llh: torch.Tensor, dh: torch.Tensor):
     """Per-tile dynamic Huffman tables and the packed description from the
-    walk's exact histograms ``llh int32[B, 288]``, ``dh int32[B, 32]``
+    exact histograms ``llh int32[B, 288]``, ``dh int32[B, 32]``
     (``gdeflate_encode.py:591-665``), on their device.
 
     Returns ``(tab int32[B, 320], desc_words int32[B, 96], hdr_bytes
@@ -533,7 +534,11 @@ def fixed_kernel(data, sizes, cands):
 
 
 def hist_kernel(data, sizes, cands):
-    """Launch the ``hist`` walk -> ``(llh int32[B, 288], dh int32[B, 32])``."""
+    """Launch the ``hist`` kernel -> ``(llh int32[B, 288], dh int32[B, 32])``:
+    the parse of each row's first 64 KiB and its symbol counts (no EOB), or
+    with ``cands`` None the bytes' histogram.  A row past 64 KiB is counted
+    over its first 64 KiB only (``batched.compress`` gives such a chunk
+    ``ERROR_CHUNK_SIZE_TOO_LARGE``); :func:`hist_plain` walks it whole."""
     args = _inputs(data, sizes, cands)
     llh = torch.empty((data.shape[0], 288), dtype=torch.int32, device=data.device)
     dh = torch.empty((data.shape[0], 32), dtype=torch.int32, device=data.device)

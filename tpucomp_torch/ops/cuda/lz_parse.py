@@ -1,21 +1,23 @@
 """Plain versions of the parallel token parse of ``csrc/lz_parse.cuh``.
 
-The Deflate ``emit`` kernel (``csrc/deflate_encode.cu``) and the GDeflate
-``fixed`` / ``emit`` kernels (``csrc/gdeflate_encode.cu``) do not walk a
-chunk's tokens one by one: the token that follows a scan position depends
-on that position alone, so every position's next token is computed at once
-(:func:`next_tokens_plain`), then the chain of next tokens from 0 is
-followed and its tokens numbered (:func:`path_plain`).  These are those
-passes' plain versions, one chunk at a time, on tensors; the CPU tests hold
-them against the serial walk ``deflate_encode._walk``.  Nothing on the card
-path calls them.
+The Deflate ``hist`` and ``emit`` kernels (``csrc/deflate_encode.cu``) and
+the GDeflate ``hist``, ``fixed`` and ``emit`` kernels
+(``csrc/gdeflate_encode.cu``) do not walk a chunk's tokens one by one: the
+token that follows a scan position depends on that position alone, so every
+position's next token is computed at once (:func:`next_tokens_plain`), then
+the chain of next tokens from 0 is followed and its tokens numbered
+(:func:`path_plain`); the ``hist`` kernels then count the tokens' symbols
+(:func:`hist_from_path_plain`).  These are those passes' plain versions, one
+chunk at a time; the CPU tests hold them against the serial walk
+``deflate_encode._walk`` and its counts.  Nothing on the card path calls
+them.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from tpucomp_torch.ops.cuda.deflate_encode import MAX_MATCH, MIN_MATCH
+from tpucomp_torch.ops.cuda.deflate_encode import MAX_MATCH, MIN_MATCH, _dist_sym, _len_sym
 
 
 def _common_prefix(words: np.ndarray, a: np.ndarray, c: np.ndarray,
@@ -126,3 +128,23 @@ def path_plain(tok: dict, size: int) -> tuple[list, list, int]:
         s = nxt[s]
     end = matches[-1][1] + matches[-1][2] if matches else 0
     return matches, numbers, lits + len(matches) + size - end
+
+
+def hist_from_path_plain(row: bytes, size: int, matches: list, n_dist: int,
+                         eob: int) -> tuple[list, list]:
+    """The hist kernels' counting phase for one chunk, from ``path_plain``'s
+    ``matches`` (none for entropy-only coding): the bytes no match covers
+    counted at their values, each match at ``257 + length symbol`` and at
+    its distance symbol, EOB ``eob`` times at 256 -> ``(llh [288], dh
+    [n_dist])``, as ``deflate_encode._hist_chunk`` (``n_dist`` 30, ``eob``
+    1) and ``gdeflate_encode._hist_chunk`` (32, 0) count the walk's tokens."""
+    covered = np.zeros(size, bool)
+    llh, dh = np.zeros(288, np.int64), np.zeros(n_dist, np.int64)
+    for _, start, ml, dist in matches:
+        covered[start:start + ml] = True
+        llh[257 + _len_sym(ml)[0]] += 1
+        dh[_dist_sym(dist)[0]] += 1
+    lits = np.frombuffer(row[:size], np.uint8)[~covered]
+    llh[:256] += np.bincount(lits, minlength=256)
+    llh[256] += eob
+    return llh.tolist(), dh.tolist()
