@@ -17,12 +17,17 @@ exit code and no result line:
    ``nvcc`` each, in parallel), with their ``-Xptxas -v`` register/shared-memory
    lines, and the Deflate decoder's registers, shared memory, spills and CTAs
    an SM from the runtime;
-3. kernel vs plain: each of the forty-four kernels on the card against its plain
+3. kernel vs plain: each of the forty-five kernels on the card against its plain
    version on a host copy of the same inputs (<= 8 chunks per corpus at the
    main path's 64 KiB shape, edge and hand-made streams, truncated and
    bit-flipped streams, an out_cap that is too small; rows 3 and 4 (k 1, 3,
    4) against row 1's plain version, which is theirs, with an empty row and
-   a size of -1; rows 5 and 8, the hash-table encoders, on the head chunks,
+   a size of -1; row 6, the Snappy decoder's parse and walk, also on the
+   streams of tests/snappy_stress.py (extra length bytes, bit 31 set,
+   copy-4, offsets at the output, every period below 64, a tag read from
+   the word before, csizes past the row, preamble errors, an incompressible
+   chunk) at out_caps 65536 and 1000 and, the walk alone (the shape the
+   parse does not take), 66560; rows 5 and 8, the hash-table encoders, on the head chunks,
    a zero and a random row and cut and out-of-range sizes; row 15, the
    serial GDeflate decoder, on rows 13-14's tiles and two corrupt tiles of
    tests/test_torch_variants.py at out_cap 64 KiB and 256; for Deflate, zlib
@@ -41,10 +46,10 @@ exit code and no result line:
    every frame is one block, its narrow one) against its plain pass on the
    plain passes' own intermediates (one plain run an input), and the 16 MiB
    wrapper also on each corpus's first 16 MiB at levels 1 and 19 and on the
-   port's own 16 MiB frame; the encoder's hist walk and full kernel
+   port's own 16 MiB frame; the encoder's hist and full kernels
    on the head chunks, the edge inputs of tests/test_pallas_zstd.py and its
    64 KiB sequence-heavy chunk, in exact entropy at two out_caps and in the
-   speed rung, with its tables on the card against the CPU, and full (the
+   speed rung, with its tables on the card against the CPU, and both (the
    gated parse) on the chunks of tests/zstd_walk_stress.py and mixed's
    64 KiB chunks 850 and 1000, also repeated past the card's SM count (a
    CTA's scratch row reused); Deflate's hist and emit kernels (rows 11
@@ -86,8 +91,10 @@ exit code and no result line:
    ``batched.decompress("zstd")`` on the same chunks staged by libzstd level
    3 (row 18, also on 1 and 8 of them) and on
    each corpus as 4 chunks of 16 MiB (row 19, each pass timed alone), and
-   ``batched.compress("zstd")`` (rows 20-21, exact entropy) with its speed
-   rung (``exact_entropy=False``), ``batched.compress`` /
+   ``batched.compress("zstd")`` (rows 20-21, exact entropy; their ms a
+   corpus on lines of their own) with its speed
+   rung (``exact_entropy=False``), row 6's ms a corpus on a line of its own,
+   ``batched.compress`` /
    ``batched.decompress("gdeflate")`` in algos 0, 1, 2 (rows 13-14, 16-17;
    tests/gdeflate_pyref.py reads three tiles of each; rows 16 and 17's
    hist, fixed and emit ms a corpus on lines of their own, as rows 11 and
@@ -110,6 +117,9 @@ exit code and no result line:
    the Zstandard settle path, counted on its own: the libzstd-staged 64 KiB
    frames into 64-byte rows through row 19's wrapper, where the frame walk
    gives every frame ``ERROR_OUTPUT_BUFFER_TOO_SMALL``;
+   the wide Snappy path, counted on its own: the staged Snappy streams of
+   both corpora through ``batched.decompress`` into rows of 64 KiB + 1024
+   bytes, a shape the parse does not take, so row 6's walk decodes them;
    the probes path, counted on its own: ``_probe.main()`` and ``main2()``,
    then each probe timed beside the one PyTorch call of the same function,
    and the time of each split into host and device (``torch.profiler``);
@@ -161,6 +171,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "lz4_decode": ("lz4_decode.cu", "tpucomp/ops/pallas/lz4_decode2.py:34"),
     "lz4_encode": ("lz4_encode.cu", "tpucomp/ops/pallas/lz4_encode2.py:50"),
     "snappy_decode": ("snappy_decode.cu", "tpucomp/ops/pallas/snappy_decode.py:29"),
+    # row 6's walk: the shapes its parse (above) does not take (the wide Snappy path)
+    "snappy_decode_walk": ("snappy_decode.cu", "tpucomp/ops/pallas/snappy_decode.py:29"),
     "snappy_encode": ("snappy_encode.cu", "tpucomp/ops/pallas/snappy_encode2.py:33"),
     "deflate_decode": ("deflate_decode.cu", "tpucomp/ops/pallas/deflate_decode.py:65"),
     "deflate_encode_fixed": ("deflate_encode.cu", "tpucomp/ops/pallas/deflate_encode.py:47"),
@@ -203,7 +215,7 @@ ZSTD_PASSES = ("zstd_chain", "zstd_entropy", "zstd_scan", "zstd_resolve", "zstd_
 VARIANTS = ("lz4_decode_single", "lz4_decode_k", "lz4_encode_hash", "snappy_encode_hash",
             "gdeflate_decode")
 PROBES = tuple(k for k in KERNELS if k.startswith("probe_"))
-OFF_MAIN = VARIANTS + PROBES + ("zstd_walk",)   # kernels of their own paths, counted there
+OFF_MAIN = VARIANTS + PROBES + ("zstd_walk", "snappy_decode_walk")  # of their own paths
 ALGOS = (0, 1, 2)
 CAS_ITERS = 3             # timing iterations of the Cascaded stages
 # Cascaded configurations: nvCOMP's num_RLEs=2, num_deltas=1, use_bp=1
@@ -353,11 +365,13 @@ def main() -> int:
     import gdeflate_pyref as pyref    # the format's serial Python codec (no JAX)
     import deflate_stress as dstress  # Deflate streams that stress the decoder's window
     import gdeflate_walk_stress as gws  # chunks that stress the GDeflate token parse
+    import snappy_stress as ssx         # streams that stress the Snappy element parse
     import zstd_walk_stress as zws      # chunks that stress the Zstandard gated parse
 
     counters = {"lz4_decode": (lz4_decode2.decompress_batch,),
                 "lz4_encode": (lz4_encode2.emit_kernel,),
                 "snappy_decode": (snappy_decode.decompress_batch,),
+                "snappy_decode_walk": (snappy_decode.decompress_batch_walk,),
                 "snappy_encode": (snappy_encode2.emit_kernel,),
                 "deflate_decode": (deflate_decode.decompress_batch,),
                 "deflate_encode_fixed": (deflate_encode.fixed_kernel,),
@@ -545,9 +559,14 @@ def main() -> int:
             dec_in.sizes[-1] = -1
         for cap, label in ((CHUNK, "64 KiB out_cap"), (1000, "out_cap too small")):
             what = f"{len(streams)} streams, {label}"
-            if fmt == "snappy":
-                compare("snappy_decode", kernel_fn, plain_fn, (dec_in.data, dec_in.sizes, cap),
-                        what)
+            if fmt == "snappy":   # row 6: the parse (the wrapper's choice here) and the walk
+                want = plain_once(("snappy_decode", "snappy_decode_walk"), plain_fn,
+                                  dec_in.data, dec_in.sizes, cap)
+                c, n = dec_in.data.to(dev), dec_in.sizes.to(dev)
+                check(snappy_decode.parse_fits(c.shape[1], cap), "snappy: the parse's shape")
+                against("snappy_decode", kernel_fn(c, n, cap), want, what)
+                against("snappy_decode_walk", snappy_decode.decompress_batch_walk(c, n, cap),
+                        want, what)
                 continue
             # rows 3 and 4 compute row 1's function: one plain run for the three
             want = plain_once(("lz4_decode", "lz4_decode_single", "lz4_decode_k"), plain_fn,
@@ -558,6 +577,19 @@ def main() -> int:
             for k in (1, 3, 4):
                 against("lz4_decode_k", lz4_decodek.decompress_batch(c, n, cap, k=k), want,
                         f"{what}, k {k}")
+    # row 6 on tests/snappy_stress.py's streams: the wrapper's choice (the
+    # parse up to 64 KiB, the walk past it) and the walk at every out_cap
+    ss_in, ss_names = ssx.batch()
+    c, n = ss_in.data.to(dev), ss_in.sizes.to(dev)
+    for cap in ssx.OUT_CAPS:
+        want = plain_once(("snappy_decode", "snappy_decode_walk"),
+                          snappy_decode.decompress_batch_plain, ss_in.data, ss_in.sizes, cap)
+        what = f"{len(ss_names)} snappy stress streams, out_cap {cap}"
+        fits = snappy_decode.parse_fits(c.shape[1], cap)
+        check(fits == (cap <= CHUNK), f"snappy: out_cap {cap} takes the wrong kernel")
+        against("snappy_decode" if fits else "snappy_decode_walk",
+                snappy_decode.decompress_batch(c, n, cap), want, what)
+        against("snappy_decode_walk", snappy_decode.decompress_batch_walk(c, n, cap), want, what)
     for fmt, (kernel_fn, plain_fn, short, small_cap) in encoders.items():
         enc_in = ChunkBatch.from_chunks(enc_rows + [head["mixed"][0]] * len(short), CHUNK,
                                         device="cpu")
@@ -877,6 +909,15 @@ def main() -> int:
                                zstd_encode.speed_tables(zs.num_chunks, "cpu"))}
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     rep_idx = torch.arange(n_sm + zs.num_chunks + 1) % zs.num_chunks
+    # row 20 on the same rows, as they are and repeated past the SM count
+    zs_what = f"{zs.num_chunks} zstd walk stress chunks and mixed 850, 1000"
+    against("zstd_encode_hist", zstd_encode.hist_kernel(zs.data.to(dev), zs.sizes.to(dev),
+                                                        [x.to(dev) for x in zs_c]),
+            (zf, zsc), zs_what)
+    against("zstd_encode_hist",
+            zstd_encode.hist_kernel(zs.data[rep_idx].to(dev), zs.sizes[rep_idx].to(dev),
+                                    [x[rep_idx].to(dev) for x in zs_c]),
+            (zf[rep_idx], zsc[rep_idx]), f"{zs_what}, repeated to {len(rep_idx)} past {n_sm} SMs")
     for rung, (freq, (fse_tab, nc)) in zs_rungs.items():
         meta, tree = zstd_encode.huf_meta(freq)
         for cap in ((zcap, 2048) if rung == "exact entropy" else (zcap,)):
@@ -1357,6 +1398,25 @@ def main() -> int:
                                              4 * zs.num_chunks)
     lap("4 settle path")
 
+    # the wide Snappy path, counted on its own: the staged Snappy streams into
+    # rows of 64 KiB + 1024 bytes, a shape row 6's parse does not take, so
+    # its walk decodes them
+    reset_counts()
+    wide = {name: batched.decompress("snappy", staged[name, "snappy"], CHUNK + 1024)
+            for name in batches}
+    torch.cuda.synchronize()
+    wlaunches = read_counts()
+    print(f"[wide] launches in the wide-Snappy-path run: {wlaunches}")
+    check(wlaunches["snappy_decode_walk"] > 0 and wlaunches["snappy_decode"] == 0,
+          f"the wide Snappy path did not go through the walk alone: {wlaunches}")
+    launches["snappy_decode_walk"] = wlaunches["snappy_decode_walk"]
+    for name, (wdec, wst) in wide.items():
+        cb = batches[name]
+        check(bool((wst == Status.SUCCESS).all()) and torch.equal(wdec.sizes, cb.sizes)
+              and torch.equal(wdec.data[:, :CHUNK], cb.data) and not wdec.data[:, CHUNK:].any(),
+              f"{name} snappy into {CHUNK + 1024}-byte rows: not bit-exact")
+    lap("4 wide snappy path")
+
     # rows 3 and 4 give row 1's bytes, sizes and statuses; the C libraries
     # (where they load) and rows 1 and 6 read every frame of rows 5 and 8;
     # row 15 gives rows 13-14's output on the port's tiles
@@ -1545,6 +1605,7 @@ def main() -> int:
     readers = {"lz4": lambda f, r: interop.lz4_decompress(f, len(r)) == r,
                "snappy": lambda f, r: interop.snappy_decompress(f) == r}
     emitters = {"lz4": lz4_encode2.emit_kernel, "snappy": snappy_encode2.emit_kernel}
+    row6 = {}    # corpus -> row 6's ms on the staged streams: the parse, the walk
     for (name, fmt), (comp, cst, dec, dst, sdec, sdst) in results.items():
         cb = batches[name]
         B = cb.num_chunks
@@ -1571,6 +1632,13 @@ def main() -> int:
         t_emit = time_ms(torch, lambda: emit(cb.data, sizes, *cand, out_cap))
         t_comp = time_ms(torch, lambda: batched.compress(fmt, cb))
         t_dec = time_ms(torch, lambda: decoders[fmt][0](sd.data, sd.sizes, CHUNK))
+        if fmt == "snappy":   # row 6: the parse (the main path's) and the walk, same input
+            t_walk = time_ms(torch, lambda: snappy_decode.decompress_batch_walk(
+                sd.data, sd.sizes, CHUNK))
+            kernel_ms["snappy_decode_walk"] += t_walk
+            bound["snappy_decode_walk"] += bytes_bound_ms(staged_bytes + 4 * B,
+                                                          B * CHUNK + 8 * B)
+            row6[name] = {"parse_ms": t_dec, "walk_ms": t_walk}
         kernel_ms[f"{fmt}_decode"] += t_dec
         kernel_ms[f"{fmt}_encode"] += t_emit
         bound[f"{fmt}_decode"] += bytes_bound_ms(staged_bytes + 4 * B, B * CHUNK + 8 * B)
@@ -1748,6 +1816,7 @@ def main() -> int:
         return interop.zstd_decompress(f_r[0], len(f_r[1])) == f_r[1]
 
     row21 = {}   # corpus -> row 21's ms, exact entropy (and the parse alone, the speed rung)
+    row20 = {}   # corpus -> row 20's ms
 
     for name, rungs in zenc.items():
         cb = batches[name]
@@ -1776,6 +1845,7 @@ def main() -> int:
             "speed_rung_ms": time_ms(torch, lambda: zstd_encode.full_kernel(
                 cb.data, sizes, cands, smeta, stree, sfse, snc, zcap))}
         t_hist = time_ms(torch, lambda: zstd_encode.hist_kernel(cb.data, sizes, cands))
+        row20[name] = t_hist
         nseq = int(sch[:, :36].sum())
         kernel_ms["zstd_encode_hist"] += t_hist
         kernel_ms["zstd_encode"] += t_full
@@ -1811,6 +1881,10 @@ def main() -> int:
           f"{json.dumps(row12)}")
     print(f"[row21] Zstandard full kernel ms a corpus of 1024 x 64 KiB (mean of {ITERS} calls; "
           f"exact entropy and the speed rung): {json.dumps(row21)}")
+    print(f"[row20] Zstandard hist kernel ms a corpus of 1024 x 64 KiB (mean of {ITERS} calls): "
+          f"{json.dumps(row20)}; {smi}")
+    print(f"[row6] Snappy decode ms a corpus of 1024 x 64 KiB on the staged streams (mean of "
+          f"{ITERS} calls; the parse, the main path's, and the walk): {json.dumps(row6)}; {smi}")
     lap("4 checks and timings, lz4 to zstd")
     row16 = {}   # corpus -> row 16's ms: hist in algos 1 and 2
     row17 = {}   # corpus -> row 17's ms: fixed (algo 0), emit (algos 1 and 2)
@@ -2139,6 +2213,9 @@ def main() -> int:
           "zstd_decode_big alone, bound by the bytes it must move on this data; zstd_walk "
           "the status-only frame walk on 1024 x 64 KiB frames marked by the chain for "
           "64-byte rows, launches from the settle path's own run), "
+          "snappy_decode is row 6's parse and snappy_decode_walk its walk, both timed on the "
+          "staged streams at out_cap 64 KiB (the walk's launches from the wide Snappy path's "
+          "own run, rows of 64 KiB + 1024 bytes), "
           "zstd_encode_hist/zstd_encode in exact entropy, gdeflate_* in algo 1: "
           "gdeflate_encode is the emit mode (the parse; bound_ms leaves out its reads of "
           "cand and cand8, 8 B a position), gdeflate_parse/exec read the port's algo-1 "

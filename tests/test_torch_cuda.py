@@ -40,6 +40,7 @@ from tpucomp_torch.utils import synth
 
 import deflate_stress as ds
 import gdeflate_walk_stress as gws
+import snappy_stress as ssx
 import zstd_walk_stress as zws
 
 pytestmark = pytest.mark.cuda
@@ -646,6 +647,62 @@ def test_zstd_full_parse_equals_plain_on_stress_rows(card, rung, out_cap, batch)
     got = zstd_encode.full_kernel(on(cb.data), on(cb.sizes), [on(c) for c in cands], on(meta),
                                   on(tree), on(fse_tab), on(nc), cap)
     assert _equal(got, tuple(w[idx] for w in want))
+
+
+@pytest.mark.parametrize("batch", ["as is", "past the SM count"])
+def test_zstd_hist_parse_equals_plain_on_stress_rows(card, batch):
+    """Row 20 (the hist kernel on row 21's parse) on
+    ``tests/zstd_walk_stress.py``'s rows and mixed's literal-heavy tail, as
+    they are and repeated past the card's SM count (a CTA's scratch row
+    reused); the same scratch then serves row 21, as in ``compress_batch``."""
+    cb, names = zws.batch()
+    raw = synth.mixed_corpus(1 << 20, seed=42).tobytes()
+    cb = ChunkBatch.from_chunks(cb.chunk_list() + [raw[-65536:], raw[860_000:860_000 + 65536]],
+                                zws.CAP, device="cpu")
+    names = names + ["mixed tail", "mixed 860000"]
+    cands = list(zws.candidates(ChunkBatch(cb.data[:-2], cb.sizes[:-2]), names[:-2]))
+    tail = match.candidates2(cb.data[-2:], cb.sizes[-2:], window=zws.WINDOW)
+    cands = [torch.cat([a, b]) for a, b in zip(cands, tail)]
+    want = zstd_encode.hist_plain(cb.data, cb.sizes, cands)
+    idx = torch.arange(cb.num_chunks)
+    if batch == "past the SM count":
+        n_sm = torch.cuda.get_device_properties(card).multi_processor_count
+        idx = torch.arange(n_sm + cb.num_chunks + 1) % cb.num_chunks
+    on = lambda t: t[idx].to(card)      # noqa: E731
+    scratch = zstd_encode.parse_scratch(len(idx), card)
+    before = zstd_encode.hist_kernel.launches
+    got = zstd_encode.hist_kernel(on(cb.data), on(cb.sizes), [on(c) for c in cands], scratch)
+    assert zstd_encode.hist_kernel.launches == before + 1
+    assert _equal(got, tuple(w[idx] for w in want))
+    meta, tree = zstd_encode.huf_meta(want[0])
+    fse_tab, nc = zstd_encode.seq_tables(want[1])
+    cap = fzstd.max_compressed_chunk_size(zws.CAP)
+    frames = zstd_encode.full_kernel(on(cb.data), on(cb.sizes), [on(c) for c in cands], on(meta),
+                                     on(tree), on(fse_tab), on(nc), cap, scratch)
+    plain = zstd_encode.full_plain(cb.data, cb.sizes, cands, meta, tree, fse_tab, nc, cap)
+    assert _equal(frames, tuple(w[idx] for w in plain))
+
+
+@pytest.mark.parametrize("out_cap", ssx.OUT_CAPS)
+def test_snappy_decode_kernels_equal_plain_on_stress_rows(card, out_cap):
+    """Row 6 on ``tests/snappy_stress.py``'s streams: the parse kernel at
+    out_caps 65536 and 1000, the walk (the shape the parse does not take)
+    past 64 KiB; each launch counted by its own wrapper."""
+    cb, names = ssx.batch()
+    parse = snappy_decode.parse_fits(cb.data.shape[1], out_cap)
+    assert parse == (out_cap <= 65536)
+    before = (snappy_decode.decompress_batch.launches,
+              snappy_decode.decompress_batch_walk.launches)
+    got = snappy_decode.decompress_batch(cb.data.to(card), cb.sizes.to(card), out_cap)
+    torch.cuda.synchronize()
+    assert (snappy_decode.decompress_batch.launches,
+            snappy_decode.decompress_batch_walk.launches) == (before[0] + int(parse),
+                                                               before[1] + int(not parse))
+    want = snappy_decode.decompress_batch_plain(cb.data, cb.sizes, out_cap)
+    for i, name in enumerate(names):
+        assert _equal([g[i] for g in got], [w[i] for w in want]), name
+    walk = snappy_decode.decompress_batch_walk(cb.data.to(card), cb.sizes.to(card), out_cap)
+    assert _equal(walk, want)
 
 
 @pytest.mark.parametrize("algo", [0, 1, 2])

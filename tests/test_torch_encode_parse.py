@@ -1,5 +1,5 @@
-"""The Deflate hist and emit kernels' and the Zstandard full kernel's plain
-pieces against the serial walks, on the CPU.
+"""The Deflate hist and emit kernels' and the Zstandard hist and full
+kernels' plain pieces against the serial walks, on the CPU.
 
 Rows 11 and 12 (``csrc/deflate_encode.cu``'s hist and emit kernels) parse a
 chunk as GDeflate's rows 16-17 do (``csrc/lz_parse.cuh``; plain versions
@@ -11,9 +11,11 @@ token's codes by one prefix sum (``deflate_encode.stream_from_path_plain``).  Ro
 gives (``next_kept_plain``) and adds the repeat-offset keeps
 (``gated_chain_plain``), and builds the literal streams and the sequence
 stream from prefix sums (``huf_offsets_plain``, ``fse_states_plain``,
-``frame_from_parse_plain``).  Here the pieces are held against the serial
-walks ``deflate_encode._walk`` and ``zstd_encode._walk`` (and its counts,
-``deflate_encode._hist_chunk``) and the frames against ``emit_plain`` and
+``frame_from_parse_plain``); row 20 (its hist kernel) counts the same
+parse's codes and uncovered bytes (``hist_from_chain_plain``).  Here the pieces are held against the serial
+walks ``deflate_encode._walk`` and ``zstd_encode._walk`` (and their
+counts, ``deflate_encode._hist_chunk`` and ``zstd_encode.hist_plain``) and
+the frames against ``emit_plain`` and
 ``full_plain`` (the yardsticks the kernels are
 held against on the card), on ``tests/gdeflate_walk_stress.py``'s chunks
 (with Deflate's 32 KiB candidates), ``tests/zstd_walk_stress.py``'s and
@@ -86,7 +88,7 @@ def _zstd(cb, names, cands) -> dict:
              "speed": (*ze.huf_meta(ze.whole_chunk_hist(cb.data, cb.sizes)),
                        *ze.speed_tables(cb.num_chunks, "cpu"))}
     return {"cb": cb, "names": names, "cands": cands, "tabs": tabs, "chains": chains,
-            "walks": walks, "rungs": rungs}
+            "walks": walks, "rungs": rungs, "hist": (freq, sch)}
 
 
 @pytest.fixture(scope="module")
@@ -227,6 +229,19 @@ def test_zstd_stress_rows_cover_their_cases(zstd_rows):
             seen.add("literals only")
     assert {"repeat only", "repeat only, first 8", "back extension only",
             "no literals, repeat code", "65532", "past 258", "literals only"} <= seen
+
+
+@pytest.mark.parametrize("which", ["stress", "corpora"])
+def test_zstd_hist_from_chain_is_hist_plain(zstd_rows, which):
+    """Row 20's counting phase over the gated chain (each sequence's codes,
+    the bytes no kept match covers) gives hist_plain's counts, the walk's."""
+    ps = zstd_rows[which]
+    cb = ps["cb"]
+    freq, sch = (t.tolist() for t in ps["hist"])
+    for i, name in enumerate(ps["names"]):
+        got = ze.hist_from_chain_plain(cb.data[i].numpy().tobytes(), int(cb.sizes[i]),
+                                       ps["chains"][i][0])
+        assert got == (freq[i], sch[i]), name
 
 
 @pytest.mark.parametrize("which", ["stress", "corpora"])

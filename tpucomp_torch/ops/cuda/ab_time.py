@@ -1,4 +1,4 @@
-"""Time the LZ77-parse encode kernels of two checkouts in turns, on one card.
+"""Time the parse kernels of two checkouts in turns, on one card.
 
     python -m tpucomp_torch.ops.cuda.ab_time PARENT CHANGE [--order PCCP]
 
@@ -9,8 +9,11 @@ its build): it builds the kernels, makes the two 64 MiB corpora of
 ``chip_smoke.py`` (``mortgage_like`` and ``mixed_corpus``, seed 42) as 1024
 chunks of 64 KiB, and times with CUDA events, in ``--rounds`` rounds of
 ``--iters`` calls after two warm-up calls, the Deflate and GDeflate ``hist``
-kernels (algo 1 on ``candidates2``'s arrays, algo 2 with none) and the two
-``emit`` kernels of algo 1.  It prints one JSON line: the card's name and
+kernels (algo 1 on ``candidates2``'s arrays, algo 2 with none), the two
+``emit`` kernels of algo 1, the Zstandard ``hist`` kernel (row 20, on
+``candidates2``'s arrays with the 64 KiB window) and the Snappy decoder (row
+6, on the port's own Snappy frames of the corpus, ``out_cap`` 64 KiB).  It
+prints one JSON line: the card's name and
 power limit, the median, least and greatest ms of each kernel and corpus,
 and a digest of each output.  The parent process prints those lines and a
 summary, and exits 1 when two checkouts' outputs differ or a process fails.
@@ -40,9 +43,10 @@ def _one(tree: Path, rounds: int, iters: int) -> dict:
     if Path(tpucomp_torch.__file__).resolve().parent != tree / "tpucomp_torch":
         raise SystemExit(f"ab_time: imported {tpucomp_torch.__file__}, not {tree}")
     from tpucomp_torch.chunk import ChunkBatch
-    from tpucomp_torch.formats import deflate as fdeflate
+    from tpucomp_torch.formats import deflate as fdeflate, snappy as fsnappy
     from tpucomp_torch.ops import match
     from tpucomp_torch.ops.cuda import _build, deflate_encode as de, gdeflate_encode as ge
+    from tpucomp_torch.ops.cuda import snappy_decode, snappy_encode2, zstd_encode as ze
     from tpucomp_torch.utils import synth
 
     if not torch.cuda.is_available():
@@ -83,12 +87,17 @@ def _one(tree: Path, rounds: int, iters: int) -> dict:
         gc = match.candidates2(d, s)
         dtab = de.dyn_tables(*de.hist_kernel(d, s, dc))
         gtab = ge.dyn_tables_gd(*ge.hist_kernel(d, s, gc))[0]
+        zc = match.candidates2(d, s, window=ze.MAX_CAP)
+        comp, csz, _ = snappy_encode2.compress_batch(
+            d, s, fsnappy.max_compressed_chunk_size(CHUNK))
         calls = {"deflate_hist_algo1": lambda: de.hist_kernel(d, s, dc),
                  "deflate_hist_algo2": lambda: de.hist_kernel(d, s, None),
                  "gdeflate_hist_algo1": lambda: ge.hist_kernel(d, s, gc),
                  "gdeflate_hist_algo2": lambda: ge.hist_kernel(d, s, None),
                  "deflate_emit_algo1": lambda: de.emit_kernel(d, s, dc, *dtab, dcap),
-                 "gdeflate_emit_algo1": lambda: ge.emit_kernel(d, s, gc, gtab)}
+                 "gdeflate_emit_algo1": lambda: ge.emit_kernel(d, s, gc, gtab),
+                 "zstd_hist": lambda: ze.hist_kernel(d, s, zc),
+                 "snappy_decode": lambda: snappy_decode.decompress_batch(comp, csz, CHUNK)}
         for what, fn in calls.items():
             ms = time_ms(fn)
             times[f"{name} {what}"] = {"median": statistics.median(ms), "min": min(ms),

@@ -47,7 +47,8 @@
 //     runs numbers the tokens.
 // The caller emits from the match records (pm: start | (ml - 3) << 16, dm:
 // distance - 1) and the token numbers, or counts their symbols
-// (count_symbols, the hist kernel of both formats).
+// (count_symbols, the hist kernel of both formats; the Zstandard hist kernel
+// counts its sequences with warp_cover, warp_count and count_uncovered).
 #pragma once
 
 #include <cstdint>
@@ -129,31 +130,30 @@ __device__ __forceinline__ void dist_sym(int dist, int& di, int& e, int& ev) {
 }
 
 // Exclusive block scan of v in thread order under op (ident its identity).
-// Every thread of the CTA calls it; scr holds 32 ints.
-template <class Op>
-__device__ __forceinline__ int block_scan_excl(int v, int ident, Op op, int* scr, int lane,
-                                               int wi) {
-  int inc = v;
+// Every thread of the CTA calls it; scr holds 32 values of type T.
+template <class T, class Op>
+__device__ __forceinline__ T block_scan_excl(T v, T ident, Op op, T* scr, int lane, int wi) {
+  T inc = v;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const int u = __shfl_up_sync(kFull, inc, o);
+    const T u = __shfl_up_sync(kFull, inc, o);
     if (lane >= o) inc = op(u, inc);
   }
   if (lane == 31) scr[wi] = inc;
   __syncthreads();
   if (wi == 0) {
-    int s = lane < kPWarps ? scr[lane] : ident;
+    T s = lane < kPWarps ? scr[lane] : ident;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
-      const int u = __shfl_up_sync(kFull, s, o);
+      const T u = __shfl_up_sync(kFull, s, o);
       if (lane >= o) s = op(u, s);
     }
     if (lane < kPWarps) scr[lane] = s;
   }
   __syncthreads();
-  int ex = __shfl_up_sync(kFull, inc, 1);
+  T ex = __shfl_up_sync(kFull, inc, 1);
   if (lane == 0) ex = ident;
-  const int out = wi > 0 ? op(scr[wi - 1], ex) : ex;
+  const T out = wi > 0 ? op(scr[wi - 1], ex) : ex;
   __syncthreads();  // scr may be reused after
   return out;
 }
@@ -352,9 +352,9 @@ __device__ __forceinline__ int next_set(const uint32_t* mask, const uint16_t* ne
   return w2 == kNone ? -1 : w2 * 32 + __ffs(mask[w2]) - 1;
 }
 
-// Phase 4, warp 0: the chain through nextv from x0 (every position below
-// mflimit holds a position, kStop or kTerm), its positions marked in `marks`
-// from x0 on (marks below x0 are kept).  Lane k chases nextv from the start
+// Phase 4, warp 0: the chain through next() from x0 (every position below
+// mflimit has a next position, kS or kT), its positions marked in `marks`
+// from x0 on (marks below x0 are kept).  Lane k chases next() from the start
 // of segment k of [x0, mflimit) until it leaves the segment, marking what it
 // meets; chases from different starts soon meet and then agree.  Lane 0 then
 // merges the segments in order: from the true chain's entry into a segment
@@ -362,10 +362,13 @@ __device__ __forceinline__ int next_set(const uint32_t* mask, const uint16_t* ne
 // chase) or out of the segment; the warp clears the segment's marks below
 // that point and lane 0 marks the true chain's positions there again.
 // Returns (to every lane) where the chain ends: end_pos, and end_kind 0 (it
-// stops at end_pos, unmarked: nextv is kStop there) or 1 (the match from
-// end_pos, marked, ends at or past mflimit).
-__device__ __forceinline__ void chase(const uint16_t* nextv, uint32_t* marks, int x0, int mflimit,
-                                      int lane, int& end_pos, int& end_kind) {
+// stops at end_pos, unmarked: next() is kS there) or 1 (the token at
+// end_pos, marked, ends at or past mflimit: next() is kT there).  `next`
+// maps a position to its next one or to the sentinels kS and kT, which no
+// position takes.
+template <int kS, int kT, class Next>
+__device__ __forceinline__ void chase_with(Next next, uint32_t* marks, int x0, int mflimit,
+                                           int lane, int& end_pos, int& end_kind) {
   const int n = mflimit - x0;
   const int seg = (((n + 31) >> 5) + 31) >> 5 << 5;  // positions a segment
   auto marked = [&](int x) { return (marks[x >> 5] >> (x & 31)) & 1; };
@@ -383,10 +386,10 @@ __device__ __forceinline__ void chase(const uint16_t* nextv, uint32_t* marks, in
   int s = x0 + lane * seg, ex = -1, ek = 0;  // ex: where the chase leaves its segment, -1 if it ends
   const int hi = min(s + seg, mflimit);
   while (s < hi) {
-    const int v = nextv[s];
-    if (v == kStop) break;
+    const int v = next(s);
+    if (v == kS) break;
     mark(s);
-    if (v == kTerm) {
+    if (v == kT) {
       ek = 1;
       break;
     }
@@ -408,9 +411,9 @@ __device__ __forceinline__ void chase(const uint16_t* nextv, uint32_t* marks, in
     int a = e, end = 0;  // end: 1 the chain stops at a, 2 it stops after a
     if (lane == 0) {
       while (a < hk && !marked(a)) {
-        const int v = nextv[a];
-        if (v == kStop) { end = 1; break; }
-        if (v == kTerm) { end = 2; break; }
+        const int v = next(a);
+        if (v == kS) { end = 1; break; }
+        if (v == kT) { end = 2; break; }
         a = v;
       }
     }
@@ -418,7 +421,7 @@ __device__ __forceinline__ void chase(const uint16_t* nextv, uint32_t* marks, in
     end = __shfl_sync(kFull, end, 0);
     clear(lo, end ? mflimit : min(a, hk));
     if (lane == 0) {
-      for (int x = e; x < a; x = nextv[x]) mark(x);
+      for (int x = e; x < a; x = next(x)) mark(x);
       if (end == 2) mark(a);
     }
     __syncwarp();
@@ -435,6 +438,13 @@ __device__ __forceinline__ void chase(const uint16_t* nextv, uint32_t* marks, in
   }
   end_pos = fin;
   end_kind = fink;
+}
+
+// The chase through a u16 next() table (positions below 65536; kStop, kTerm).
+__device__ __forceinline__ void chase(const uint16_t* nextv, uint32_t* marks, int x0, int mflimit,
+                                      int lane, int& end_pos, int& end_kind) {
+  chase_with<kStop, kTerm>([nextv](int x) { return static_cast<int>(nextv[x]); }, marks, x0,
+                           mflimit, lane, end_pos, end_kind);
 }
 
 // The marks at and past position x0 as an ascending list into path[at0...):
@@ -720,55 +730,39 @@ __device__ __forceinline__ void warp_count(uint32_t* h, int bin, int lane) {
   if (bin >= 0 && lane == __ffs(peers) - 1) atomicAdd(h + bin, static_cast<unsigned>(__popc(peers)));
 }
 
-// The counting phase: a chunk's symbol counts into llh[0..288) and
-// dh[0..n_dist) (global), from its staged `bytes` and, where cover is not
-// null, deflate_parse's m match records (pm, dm).  Every thread calls it;
-// the first barrier also orders the caller's staging.
-//  a. the counts and the coverage bitmask are zeroed;
-//  b. each match counts its length and distance symbols and sets its bytes'
-//     bits in the bitmask: the words inside it by plain stores (no other
-//     match touches them), its two end words by atomicOr;
-//  c. each warp takes one word of the bitmask (32 positions) a step, four
-//     steps at once, and counts the bytes whose bit is clear; a word all
-//     covered is skipped, so a warp's share follows the positions, not the
-//     literal runs;
-//  d. the copies are summed into the output.
-template <int kNDist, int kEob>
-__device__ __forceinline__ void count_symbols(const uint8_t* bytes, const uint32_t* pm,
-                                              const uint16_t* dm, int m, uint32_t* cover,
-                                              uint32_t* hist, int size, int32_t* llh,
-                                              int32_t* dh, int tid, int lane, int wi) {
-  for (int i = tid; i < kHistCopies * kBins; i += kPThreads) hist[i] = 0;
-  if (cover)
-    for (int i = tid; i < kWords; i += kPThreads) cover[i] = 0;
-  __syncthreads();
-  uint32_t* h = hist + (wi % kHistCopies) * kBins;
-  if (kEob && tid == 0) atomicAdd(h + 256, static_cast<unsigned>(kEob));
-  for (int jb = wi * 32; jb < m; jb += kPThreads) {  // b. the matches
-    const int j = jb + lane;
-    int lbin = -1, dbin = -1;
-    if (j < m) {
-      const int s = static_cast<int>(pm[j] & 0xFFFF), ml = static_cast<int>(pm[j] >> 16) + 3;
-      int sym, e, ev;
-      len_sym(ml, sym, e, ev);
-      lbin = 257 + sym;
-      dist_sym(dm[j] + 1, sym, e, ev);
-      dbin = 288 + sym;
-      const int w0 = s >> 5, w1 = (s + ml - 1) >> 5;
-      const uint32_t m0 = kFull << (s & 31), m1 = kFull >> (31 - ((s + ml - 1) & 31));
-      if (w0 == w1) {
-        atomicOr(cover + w0, m0 & m1);
-      } else {
-        atomicOr(cover + w0, m0);
+// Set the bits of positions [s, s + n) (n >= 1) in `cover` for every lane
+// with `valid`: the two end words by atomicOr, the words between by plain
+// stores (no other range touches them); a range with more than 8 words
+// between its ends (only Zstandard's matches are that long) is stored by the
+// whole warp.  The whole warp calls it.
+__device__ __forceinline__ void warp_cover(uint32_t* cover, int s, int n, bool valid, int lane) {
+  const int w0 = s >> 5, w1 = (s + n - 1) >> 5;
+  if (valid) {
+    const uint32_t m0 = kFull << (s & 31), m1 = kFull >> (31 - ((s + n - 1) & 31));
+    if (w0 == w1) {
+      atomicOr(cover + w0, m0 & m1);
+    } else {
+      atomicOr(cover + w0, m0);
+      if (w1 - w0 <= 9)
         for (int w = w0 + 1; w < w1; ++w) cover[w] = kFull;
-        atomicOr(cover + w1, m1);
-      }
+      atomicOr(cover + w1, m1);
     }
-    warp_count(h, lbin, lane);
-    warp_count(h, dbin, lane);
   }
-  __syncthreads();
-  constexpr int kSteps = 4;  // c. the literals
+  for (unsigned big = __ballot_sync(kFull, valid && w1 - w0 > 9); big; big &= big - 1) {
+    const int l = __ffs(big) - 1;
+    const int a = __shfl_sync(kFull, w0, l) + 1, b = __shfl_sync(kFull, w1, l);
+    for (int w = a + lane; w < b; w += 32) cover[w] = kFull;
+  }
+}
+
+// The bytes [0, size) whose bit in `cover` is clear (all of them where cover
+// is null), counted into h: each warp takes one word of the bitmask (32
+// positions) a step, four steps at once; a word all covered is skipped, so a
+// warp's share follows the positions, not the literal runs.  `bytes` may be
+// shared or global.  Every warp calls it; no barrier.
+__device__ __forceinline__ void count_uncovered(const uint8_t* bytes, const uint32_t* cover,
+                                                uint32_t* h, int size, int lane, int wi) {
+  constexpr int kSteps = 4;
   const int nw = (size + 31) >> 5;
   for (int w0 = wi; w0 < nw; w0 += kSteps * kPWarps) {
     uint32_t cv[kSteps];
@@ -783,6 +777,45 @@ __device__ __forceinline__ void count_symbols(const uint8_t* bytes, const uint32
     for (int u = 0; u < kSteps; ++u)
       if (cv[u] != kFull) warp_count(h, bin[u], lane);  // cv is the warp's: a uniform branch
   }
+}
+
+// The counting phase: a chunk's symbol counts into llh[0..288) and
+// dh[0..n_dist) (global), from its staged `bytes` and, where cover is not
+// null, deflate_parse's m match records (pm, dm).  Every thread calls it;
+// the first barrier also orders the caller's staging.
+//  a. the counts and the coverage bitmask are zeroed;
+//  b. each match counts its length and distance symbols and sets its bytes'
+//     bits in the bitmask (warp_cover);
+//  c. the bytes whose bit is clear are counted (count_uncovered);
+//  d. the copies are summed into the output.
+template <int kNDist, int kEob>
+__device__ __forceinline__ void count_symbols(const uint8_t* bytes, const uint32_t* pm,
+                                              const uint16_t* dm, int m, uint32_t* cover,
+                                              uint32_t* hist, int size, int32_t* llh,
+                                              int32_t* dh, int tid, int lane, int wi) {
+  for (int i = tid; i < kHistCopies * kBins; i += kPThreads) hist[i] = 0;
+  if (cover)
+    for (int i = tid; i < kWords; i += kPThreads) cover[i] = 0;
+  __syncthreads();
+  uint32_t* h = hist + (wi % kHistCopies) * kBins;
+  if (kEob && tid == 0) atomicAdd(h + 256, static_cast<unsigned>(kEob));
+  for (int jb = wi * 32; jb < m; jb += kPThreads) {  // b. the matches
+    const int j = jb + lane;
+    int lbin = -1, dbin = -1, s = 0, ml = 0;
+    if (j < m) {
+      s = static_cast<int>(pm[j] & 0xFFFF), ml = static_cast<int>(pm[j] >> 16) + 3;
+      int sym, e, ev;
+      len_sym(ml, sym, e, ev);
+      lbin = 257 + sym;
+      dist_sym(dm[j] + 1, sym, e, ev);
+      dbin = 288 + sym;
+    }
+    warp_cover(cover, s, ml, j < m, lane);
+    warp_count(h, lbin, lane);
+    warp_count(h, dbin, lane);
+  }
+  __syncthreads();
+  count_uncovered(bytes, cover, h, size, lane, wi);  // c. the literals
   __syncthreads();
   for (int i = tid; i < 288 + kNDist; i += kPThreads) {  // d. the sum
     uint32_t v = 0;

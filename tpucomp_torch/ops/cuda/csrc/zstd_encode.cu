@@ -1,6 +1,6 @@
-// Batched Zstandard encode in two kernels that see the same sequences: the
-// hist walk, one warp per chunk, and the full kernel, a gated parse, one CTA
-// of 1024 threads a chunk.
+// Batched Zstandard encode in two kernels over one gated parse: the hist
+// kernel (the sequences' counts) and the full kernel (the frame), one
+// resident CTA of 1024 threads an SM in both.
 //
 // Replaces the TPU kernel tpucomp/ops/pallas/zstd_encode.py::_kernel in its
 // two trace-time modes: "hist" (called by compress_batch at
@@ -8,8 +8,9 @@
 // :932).  Match finding is not in here: the caller first runs the sort-based
 // candidate pass (tpucomp_torch/ops/match.py::candidates2 with the 64 KiB
 // window), which gives for every position the nearest previous 4-byte match
-// `cand`, an 8-byte-prefix sort neighbour `cand8`, and `nxt`, the next
-// position that has either.  The walk, which the parse reproduces:
+// `cand` and an 8-byte-prefix sort neighbour `cand8` (its `nxt`, the next
+// position with either, is the TPU kernel's; the parse does not read it).
+// Both modes compute the sequences of the TPU kernel's walk:
 //
 //   nm = nxt[scan]; stop at nm >= mflimit = size - 3 or a full sequence buffer
 //   extend cand and cand8 forward, at most size - (nm + 4) bytes; keep the
@@ -22,10 +23,13 @@
 //     repeat stack updated as RFC 8878 3.1.1.5 says (ll == 0 shifts the
 //     repeat codes by one), anchor = scan = nm2 + ml
 //
-// then the literals [anchor, size).
+// then the literals [anchor, size).  The sequence buffer (cap / 4 + 8 slots)
+// never fills at cap <= 65536: a sequence covers at least 4 bytes, so a
+// chunk has at most size / 4 of them; the parse has no such stop.
 //  * hist: the literal bytes' histogram into int32[B, 256] and the kept
 //    sequences' LL/ML/OF code counts into int32[B, 121] (LL at 0, ML at 36,
-//    OF at 89); no output row.
+//    OF at 89, the OF code capped at 31); no output row.  They feed the
+//    caller's table builders, so they are exact.
 //  * full: one complete frame: header (magic, FHD 0x80, window byte, 4-byte
 //    content size, block header); the literal section, 4-stream Huffman
 //    (Size_Format 3, the tree description given, a 6-byte jump table, each
@@ -48,20 +52,14 @@
 // The TPU kernel's 4096-byte slabs over a second grid dimension only
 // pipeline the candidate arrays through SMEM: a match that runs past a slab
 // resumes in the next, and a walk that stops ends every later slab, so here
-// the walk is one loop over the chunk.
+// a chunk is parsed whole.  Shapes: cap <= 65536 (a wider row takes the
+// multi-block encoder, tpucomp_torch/formats/zstd.py), any batch.
 //
 // Bound: bytes.  A call must read each input byte once and write each output
 // byte once (B x out_cap, the zero tail included; hist writes B x 377
-// counts); hist reads the candidate arrays only where the walk lands, full
-// reads cand and cand8 in full and fse_tab (216 KB a chunk) only in the
-// columns its sequences use.  The hist walk is latency-bound: a chunk costs
-// its steps (candidates visited), up to 24k on mixed's literal-heavy chunks,
-// each two forward extensions from global memory.
-// Design of the walk: a warp per chunk, all lanes carrying the same walk state
-// (broadcast loads, uniform branches); forward extension compares 32 bytes a
-// step with a ballot (warp_match_len); the histograms live in the warp's
-// shared memory.
-
+// counts); both modes read cand and cand8 in full, full reads fse_tab (216
+// KB a chunk) only in the columns its sequences use.  The exact-entropy
+// rung parses every chunk twice, once a mode.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -74,7 +72,6 @@ namespace {
 constexpr int kSuccess = 0;
 constexpr int kOutputTooSmall = 15;
 constexpr int kMinMatch = 4;
-constexpr int kWarpsPerBlock = 4;
 // the constant table of ops/cuda/zstd_encode.py (CONST): code lookups first
 constexpr int kOLLC = 0, kOMLC = 64, kOLLX = 192, kOMLX = 228;
 // each chunk's FSE block (ops/cuda/zstd_encode.py: O2_*, FSE_TT)
@@ -102,87 +99,12 @@ __device__ __forceinline__ int ml_code(const int32_t* cst, int mlv) {
   return mlv < 128 ? cst[kOMLC + mlv] : 36 + hibit(max(mlv, 1));
 }
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-zstd_hist_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__ sizes,
-                 const int32_t* __restrict__ cand, const int32_t* __restrict__ cand8,
-                 const int32_t* __restrict__ nxt, int batch, int cap, int cap_seq,
-                 const int32_t* __restrict__ cst, int32_t* __restrict__ freq_out,
-                 int32_t* __restrict__ sch_out) {
-  __shared__ int32_t s_tab[kWarpsPerBlock][kHist];
-  const int wi = threadIdx.x / 32;
-  const int chunk = blockIdx.x * kWarpsPerBlock + wi;
-  if (chunk >= batch) return;  // the whole warp leaves together
-  const int lane = threadIdx.x & 31;
-  const size_t row = static_cast<size_t>(chunk) * cap;
-  const uint8_t* in = data + row;
-  const int size = min(max(sizes[chunk], 0), cap);
-  int32_t* t = s_tab[wi];  // byte counts, then code counts
-  for (int i = lane; i < kHist; i += 32) t[i] = 0;
-  __syncwarp();
-
-  // ---- the walk ----
-  const int32_t* c4 = cand + row;
-  const int32_t* c8 = cand8 + row;
-  const int32_t* nx = nxt + row;
-  const int mflimit = size - kMinMatch + 1;
-  int anchor = 0, scan = 0, nseq = 0;
-  int r0 = 1, r1 = 4, r2 = 8;  // the repeat-offset stack, RFC 8878's initial values
-  while (scan < mflimit) {
-    const int nm = nx[scan];
-    if (nm >= mflimit || nseq >= cap_seq) break;  // the rest is literal
-    const int c4p = c4[nm], c8p = c8[nm];
-    const int p4 = c4p >= 0 ? c4p : c8p;
-    const int p8 = c8p >= 0 ? c8p : p4;
-    const int fcap = size - (nm + kMinMatch);
-    const int l4 = tpucomp::warp_match_len(in, nm + kMinMatch, p4 + kMinMatch, fcap, lane);
-    const int l8 =
-        p8 != p4 ? tpucomp::warp_match_len(in, nm + kMinMatch, p8 + kMinMatch, fcap, lane) : l4;
-    const bool use8 = l8 > l4;
-    const int src = use8 ? p8 : p4;
-    const int c = nm - src;
-    int nm2 = nm, src2 = src;
-    while (nm2 > anchor && src2 > 0 && in[nm2 - 1] == in[src2 - 1]) {
-      --nm2;
-      --src2;
-    }
-    const int ml = nm - nm2 + kMinMatch + (use8 ? l8 : l4);
-    const int ll = nm2 - anchor;
-    const bool is_rep = c == r0 || c == r1 || c == r2;
-    if (!(is_rep || ml * 5 >= hibit(c) + 18)) {  // the cost gate
-      scan = nm + 1;
-      continue;
-    }
-    for (int i = anchor + lane; i < nm2; i += 32) atomicAdd(&t[in[i]], 1);
-    const bool with_lit = ll > 0;
-    const int ofv = with_lit ? (c == r0 ? 1 : c == r1 ? 2 : c == r2 ? 3 : c + 3)
-                             : (c == r1 ? 1 : c == r2 ? 2 : c + 3);
-    const bool keep = with_lit && ofv == 1;
-    const bool swap = (with_lit && ofv <= 2) || (!with_lit && ofv == 1);
-    const int n0 = keep ? r0 : c, n1 = keep ? r1 : r0, n2 = swap ? r2 : r1;
-    r0 = n0, r1 = n1, r2 = n2;
-    if (lane == 0) {
-      ++t[256 + ll_code(cst, ll)];
-      ++t[256 + 36 + ml_code(cst, ml - 3)];
-      ++t[256 + 89 + min(hibit(ofv), 31)];
-    }
-    ++nseq;
-    anchor = scan = nm2 + ml;
-  }
-
-  for (int i = anchor + lane; i < size; i += 32) atomicAdd(&t[in[i]], 1);
-  __syncwarp();
-  for (int i = lane; i < kHist; i += 32) {
-    if (i < 256)
-      freq_out[static_cast<size_t>(chunk) * 256 + i] = t[i];
-    else
-      sch_out[static_cast<size_t>(chunk) * 121 + i - 256] = t[i];
-  }
-}
-
-// ================================================================== full ==
+// ================================================================= parse ==
 // The gated parse: one CTA of 1024 threads a chunk, in phases over 227 KB of
 // shared memory (csrc/lz_parse.cuh gives the staging, the forward
-// extensions, the merged chases and the scans):
+// extensions, the merged chases and the scans).  Phases 1-5 are the parse
+// (zstd_parse, shared by both kernels); hist then counts (hist_chunk), full
+// places the literals and goes on with 6-9 (full_chunk):
 //  1. the chunk's bytes are staged by cp.async;
 //  2. every candidate position p at once: the walk's source, offset c(p)
 //     and forward length Lf(p) (no cap: runs of one distance are resolved
@@ -204,8 +126,14 @@ zstd_hist_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__ s
 //     whose offset is on its stack is kept instead (the walk's repeat rule),
 //     and the next round starts past its match;
 //  5. each sequence's exact back extension (bounded by its anchor and
-//     src2 > 0), ll, ml, offset value and codes; its literals to the
-//     scratch at a block scan of ll;
+//     src2 > 0), ll, ml, offset value and codes;
+// hist: the code counts from each sequence's codes, and the literal bytes:
+//     a coverage bitmask of the sequences' matches, then the bytes no match
+//     covers a bitmask word a warp step (lz_parse.cuh's warp_cover and
+//     count_uncovered), warp-aggregated increments into 8 copies of the
+//     counts in region N (a chunk without a kept match adds 2048 times a
+//     copy, not 65536 times one address);
+// full, 5b: each sequence's literals to the scratch at a block scan of ll;
 //  6. the literal streams' bit counts (a reduction of code lengths), the
 //     Huffman-or-raw decision;
 //  7. the FSE states, step by step from the last sequence: the used columns
@@ -249,8 +177,9 @@ constexpr int kScrWords = kScrLane + 3 * kMaxSeq / 2;
 // sequence's anchor and match position (u16 lists) for the rounds and 5,
 // each FSE step's codes for 7, the staging of the literal streams and of
 // the sequence stream for 9.  Region N: next() (u16 a position) for phases
-// 2-4, then the literals' places for 5, then (with the dead masks) the FSE
-// encode tables' used columns (u16: next state << 1 | bits << 11) for 7-9.
+// 2-4; then in hist the coverage bitmask and the counts; in full the
+// literals' places for 5b, then (with the dead masks) the FSE encode
+// tables' used columns (u16: next state << 1 | bits << 11) for 7-9.
 constexpr int kZA = 0;
 constexpr int kZPath = kZA;                        // u16 [kMaxSeq] sequence j's anchor
 constexpr int kZK = kZPath + 2 * kMaxSeq;          // u16 [kMaxSeq] its match position
@@ -268,6 +197,9 @@ constexpr int kStage = kMaxPos + 16;               // staging bytes (a stream is
 constexpr int kZFse = kZN;                         // u16 [kO2LLF] the FSE columns in use
 constexpr int kZCodes = kZA;                       // u32 [kMaxSeq] each FSE step's codes
 constexpr int kSegs = 10;                          // FSE chase segments, three lanes each
+constexpr int kZCover = kZN;                       // u32 [kWords] hist: the matches' bytes
+constexpr int kZHist = kZCover + 4 * kWords;       // u32 [kHistCopies][kHist] hist: the counts
+static_assert(kZHist + 4 * lzp::kHistCopies * kHist <= kZG, "the hist counts overflow region N");
 static_assert(kZK + 2 * kMaxSeq <= kZN && kStage <= kZN, "region A overflows");
 static_assert(kZFse + 2 * kO2LLF <= kZR && 4 * kMaxSeq <= kZN, "the FSE columns or codes overflow");
 static_assert(kZBytes <= lzp::kSmemMax, "more shared memory than a Hopper CTA may have");
@@ -366,50 +298,42 @@ __device__ __forceinline__ int kept_from(const uint32_t* gmask, const uint32_t* 
   return q;
 }
 
-__device__ __forceinline__ void full_chunk(
-    int chunk, uint8_t* smem, const uint8_t* __restrict__ data,
-    const int32_t* __restrict__ sizes, const int32_t* __restrict__ cand,
-    const int32_t* __restrict__ cand8, int cap, const int32_t* __restrict__ cst,
-    const int32_t* __restrict__ huf_meta, const uint8_t* __restrict__ tree,
-    const int32_t* __restrict__ fse_tab, const uint8_t* __restrict__ nc,
-    int32_t* __restrict__ scw, uint8_t* __restrict__ out, int out_cap,
-    int32_t* __restrict__ out_sizes, int32_t* __restrict__ statuses) {
+// Phases 1-5 of one chunk (its first size = min(max(sizes[chunk], 0), cap)
+// bytes at `in`), into the CTA's shared memory and scratch row scw.  Returns
+// m, the sequence count, after a barrier; sequence j < m has its anchor at
+// path[j] and its match at tokk[j] (nm2), ll | (ml - 3) << 16 in seqa[j],
+// the offset value in seqb[j], llc | mlc << 6 | ofc << 12 in seqc[j], the
+// repeat stack before it in sstack[j]; misc[kZUsed..] has a bit for each
+// code used.
+__device__ __forceinline__ int zstd_parse(uint8_t* smem, const uint8_t* __restrict__ in,
+                                          int size, const int32_t* __restrict__ c4,
+                                          const int32_t* __restrict__ c8, int cap,
+                                          const int32_t* __restrict__ cst,
+                                          int32_t* __restrict__ scw) {
   uint8_t* bytes = smem + kZA;
   const uint32_t* words = reinterpret_cast<const uint32_t*>(bytes);
   uint16_t* nextv = reinterpret_cast<uint16_t*>(smem + kZN);
-  uint32_t* litpos = reinterpret_cast<uint32_t*>(smem + kZN);
-  uint32_t* stage = reinterpret_cast<uint32_t*>(smem + kZA);
   uint32_t* gmask = reinterpret_cast<uint32_t*>(smem + kZG);
   uint16_t* nw = reinterpret_cast<uint16_t*>(smem + kZNW);
   uint32_t* marks = reinterpret_cast<uint32_t*>(smem + kZMarks);
   uint32_t* rmask = reinterpret_cast<uint32_t*>(smem + kZR);
   uint16_t* path = reinterpret_cast<uint16_t*>(smem + kZPath);
   uint16_t* tokk = reinterpret_cast<uint16_t*>(smem + kZK);
-  int32_t* huf = reinterpret_cast<int32_t*>(smem + kZHuf);
   int* scr = reinterpret_cast<int*>(smem + kZScr);
   uint64_t* scr64 = reinterpret_cast<uint64_t*>(smem + kZScr64);
   int* misc = reinterpret_cast<int*>(smem + kZMisc);
 
   const int tid = threadIdx.x, lane = tid & 31, wi = tid >> 5;
-  const size_t row = static_cast<size_t>(chunk) * cap;
-  const uint8_t* in = data + row;
-  const int size = min(max(sizes[chunk], 0), min(cap, kMaxPos));
   const int mflimit = size - kMinMatch + 1;
   uint32_t* pinfo = reinterpret_cast<uint32_t*>(scw + kScrInfo);
   uint8_t* plvl = reinterpret_cast<uint8_t*>(scw + kScrLvl);
   int32_t* seqa = scw + kScrSeqA;
   int32_t* seqb = scw + kScrSeqB;
   uint64_t* sstack = reinterpret_cast<uint64_t*>(scw + kScrStack);
-  uint32_t* sstate = reinterpret_cast<uint32_t*>(scw + kScrState);
   int32_t* seqc = scw + kScrCode;
-  uint16_t* t16 = reinterpret_cast<uint16_t*>(smem + kZFse);
-  uint32_t* scodes = reinterpret_cast<uint32_t*>(smem + kZCodes);
-  const int32_t* fse = fse_tab + static_cast<size_t>(chunk) * kFseTT;
-  const int32_t* meta = huf_meta + static_cast<size_t>(chunk) * kHufMeta;
 
-  // ---- 1: stage the bytes and the Huffman codes; clear the masks
+  // ---- 1: stage the bytes; clear the masks
   lzp::stage_bytes(bytes, in, size, cap, tid);
-  for (int i = tid; i < 256; i += kPThreads) huf[i] = meta[i];
   for (int i = tid; i < kWords; i += kPThreads) gmask[i] = 0, marks[i] = 0, rmask[i] = 0;
   if (tid < 24) misc[tid] = 0;
   __syncthreads();
@@ -420,8 +344,6 @@ __device__ __forceinline__ void full_chunk(
   // when the position's own back extension (at most 3 bytes, src2 > 0)
   // reaches it; 3 bytes always pass (5 * 7 >= 33).  G = level <= 3.
   const int nblk = mflimit > 0 ? (mflimit + 31) >> 5 : 0;
-  const int32_t* c4 = cand + row;
-  const int32_t* c8 = cand8 + row;
   // warp wi takes a stretch of blocks from the top down, each handing its
   // lowest items' first mismatches to the block below (long matches cost a
   // compare a run, not one a block)
@@ -621,9 +543,7 @@ __device__ __forceinline__ void full_chunk(
   __syncthreads();
 
   // ---- 5: the sequences: the exact back extension (bounded by the anchor
-  // and src2 > 0), ll, ml, the offset value from the stack; the literal
-  // counts' prefix places each sequence's literals
-  int mylit = 0;
+  // and src2 > 0), ll, ml, the offset value from the stack, the codes
   {
     const int per = (m + kPThreads - 1) / kPThreads;
     const int q0 = min(m, tid * per), q1 = min(m, tid * per + per);
@@ -646,8 +566,102 @@ __device__ __forceinline__ void full_chunk(
       atomicOr(&misc[kZUsed + 2 + (mlc >> 5)], 1 << (mlc & 31));
       atomicOr(&misc[kZUsed + 4], 1 << min(ofc, 31));
       tokk[j] = static_cast<uint16_t>(nm2);
-      mylit += ll;
     }
+  }
+  __syncthreads();
+  return m;
+}
+
+// The hist kernel's chunk: the parse, then the counts of its sequences'
+// codes and of the bytes no match covers.
+__device__ __forceinline__ void hist_chunk(int chunk, uint8_t* smem,
+                                           const uint8_t* __restrict__ data,
+                                           const int32_t* __restrict__ sizes,
+                                           const int32_t* __restrict__ cand,
+                                           const int32_t* __restrict__ cand8, int cap,
+                                           const int32_t* __restrict__ cst,
+                                           int32_t* __restrict__ scw, int32_t* __restrict__ freq,
+                                           int32_t* __restrict__ sch) {
+  const int tid = threadIdx.x, lane = tid & 31, wi = tid >> 5;
+  const size_t row = static_cast<size_t>(chunk) * cap;
+  const uint8_t* in = data + row;
+  const int size = min(max(sizes[chunk], 0), min(cap, kMaxPos));
+  const int m = zstd_parse(smem, in, size, cand + row, cand8 + row, cap, cst, scw);
+  const uint16_t* tokk = reinterpret_cast<const uint16_t*>(smem + kZK);
+  const int32_t* seqa = scw + kScrSeqA;
+  const int32_t* seqc = scw + kScrCode;
+  uint32_t* cover = reinterpret_cast<uint32_t*>(smem + kZCover);
+  uint32_t* hist = reinterpret_cast<uint32_t*>(smem + kZHist);
+  for (int i = tid; i < lzp::kHistCopies * kHist; i += kPThreads) hist[i] = 0;
+  for (int i = tid; i < kWords; i += kPThreads) cover[i] = 0;
+  __syncthreads();
+  uint32_t* h = hist + (wi % lzp::kHistCopies) * kHist;
+  for (int jb = wi * 32; jb < m; jb += kPThreads) {  // the sequences' codes and matches
+    const int j = jb + lane;
+    int s = 0, ml = 0, code = 0;
+    if (j < m) {
+      s = tokk[j];
+      ml = static_cast<int>(static_cast<uint32_t>(seqa[j]) >> 16) + 3;
+      code = seqc[j];
+    }
+    lzp::warp_cover(cover, s, ml, j < m, lane);
+    lzp::warp_count(h, j < m ? 256 + (code & 0x3F) : -1, lane);
+    lzp::warp_count(h, j < m ? 256 + 36 + ((code >> 6) & 0x3F) : -1, lane);
+    lzp::warp_count(h, j < m ? 256 + 89 + min(code >> 12, 31) : -1, lane);
+  }
+  __syncthreads();
+  lzp::count_uncovered(in, cover, h, size, lane, wi);  // the literals, from global memory
+  __syncthreads();
+  for (int i = tid; i < kHist; i += kPThreads) {
+    uint32_t v = 0;
+#pragma unroll
+    for (int c = 0; c < lzp::kHistCopies; ++c) v += hist[c * kHist + i];
+    if (i < 256)
+      freq[static_cast<size_t>(chunk) * 256 + i] = static_cast<int32_t>(v);
+    else
+      sch[static_cast<size_t>(chunk) * 121 + i - 256] = static_cast<int32_t>(v);
+  }
+}
+
+// The full kernel's chunk: the parse, then phases 5b-9.
+__device__ __forceinline__ void full_chunk(
+    int chunk, uint8_t* smem, const uint8_t* __restrict__ data,
+    const int32_t* __restrict__ sizes, const int32_t* __restrict__ cand,
+    const int32_t* __restrict__ cand8, int cap, const int32_t* __restrict__ cst,
+    const int32_t* __restrict__ huf_meta, const uint8_t* __restrict__ tree,
+    const int32_t* __restrict__ fse_tab, const uint8_t* __restrict__ nc,
+    int32_t* __restrict__ scw, uint8_t* __restrict__ out, int out_cap,
+    int32_t* __restrict__ out_sizes, int32_t* __restrict__ statuses) {
+  uint32_t* litpos = reinterpret_cast<uint32_t*>(smem + kZN);
+  uint32_t* stage = reinterpret_cast<uint32_t*>(smem + kZA);
+  uint16_t* path = reinterpret_cast<uint16_t*>(smem + kZPath);
+  uint16_t* tokk = reinterpret_cast<uint16_t*>(smem + kZK);
+  int32_t* huf = reinterpret_cast<int32_t*>(smem + kZHuf);
+  int* scr = reinterpret_cast<int*>(smem + kZScr);
+  int* misc = reinterpret_cast<int*>(smem + kZMisc);
+
+  const int tid = threadIdx.x, lane = tid & 31, wi = tid >> 5;
+  const size_t row = static_cast<size_t>(chunk) * cap;
+  const uint8_t* in = data + row;
+  const int size = min(max(sizes[chunk], 0), min(cap, kMaxPos));
+  int32_t* seqa = scw + kScrSeqA;
+  int32_t* seqb = scw + kScrSeqB;
+  uint32_t* sstate = reinterpret_cast<uint32_t*>(scw + kScrState);
+  int32_t* seqc = scw + kScrCode;
+  uint16_t* t16 = reinterpret_cast<uint16_t*>(smem + kZFse);
+  uint32_t* scodes = reinterpret_cast<uint32_t*>(smem + kZCodes);
+  const int32_t* fse = fse_tab + static_cast<size_t>(chunk) * kFseTT;
+  const int32_t* meta = huf_meta + static_cast<size_t>(chunk) * kHufMeta;
+  const int m = zstd_parse(smem, in, size, cand + row, cand8 + row, cap, cst, scw);
+
+  // ---- 5b: the Huffman codes; the literal counts' prefix places each
+  // sequence's literals
+  for (int i = tid; i < 256; i += kPThreads) huf[i] = meta[i];
+  {
+    const int per = (m + kPThreads - 1) / kPThreads;
+    const int q0 = min(m, tid * per), q1 = min(m, tid * per + per);
+    int mylit = 0;
+    for (int j = q0; j < q1; ++j) mylit += tokk[j] - path[j];
     int at = lzp::block_scan_excl(mylit, 0, [](int a, int b) { return a + b; }, scr, lane, wi);
     for (int j = q0; j < q1; ++j) {
       litpos[j] = at;
@@ -909,8 +923,21 @@ __device__ __forceinline__ void full_chunk(
   unstage(stage, orow, o1 + 3 + nc_len, seq_bytes, tid);
 }
 
-// The parse, a CTA an SM: CTA i takes every gridDim-th chunk from i, through
-// scratch row i.
+// The kernels, a CTA an SM: CTA i takes every gridDim-th chunk from i,
+// through scratch row i.
+__global__ void __launch_bounds__(kPThreads, 1)
+zstd_hist_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__ sizes,
+                 const int32_t* __restrict__ cand, const int32_t* __restrict__ cand8, int batch,
+                 int cap, const int32_t* __restrict__ cst, int32_t* __restrict__ scratch,
+                 int32_t* __restrict__ freq, int32_t* __restrict__ sch) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  int32_t* scw = scratch + static_cast<size_t>(blockIdx.x) * kScrWords;
+  for (int chunk = blockIdx.x; chunk < batch; chunk += gridDim.x) {
+    hist_chunk(chunk, smem, data, sizes, cand, cand8, cap, cst, scw, freq, sch);
+    __syncthreads();  // shared memory and the scratch row are the next chunk's
+  }
+}
+
 __global__ void __launch_bounds__(kPThreads, 1)
 zstd_full_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__ sizes,
                  const int32_t* __restrict__ cand, const int32_t* __restrict__ cand8, int batch,
@@ -931,29 +958,31 @@ zstd_full_kernel(const uint8_t* __restrict__ data, const int32_t* __restrict__ s
 }  // namespace
 
 // Each launches on `stream` and returns cudaGetLastError() after the launch
-// (0 = ok).  cst is ops/cuda/zstd_encode.py's CONST.
-// hist: cap_seq is the sequence slots a chunk may fill (cap / 4 + 8);
-// freq int32[B, 256], sch int32[B, 121].
-extern "C" int tpucomp_zstd_encode_hist(const uint8_t* data, const int32_t* sizes,
-                                        const int32_t* cand, const int32_t* cand8,
-                                        const int32_t* nxt, int batch, int cap, int cap_seq,
-                                        const int32_t* cst, int32_t* freq, int32_t* sch,
-                                        void* stream) {
-  if (batch <= 0) return 0;
-  const int blocks = (batch + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  zstd_hist_kernel<<<blocks, kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      data, sizes, cand, cand8, nxt, batch, cap, cap_seq, cst, freq, sch);
-  return static_cast<int>(cudaGetLastError());
-}
+// (0 = ok).  cst is ops/cuda/zstd_encode.py's CONST; cap <= 65536; scratch
+// int32[ctas, scratch_words()], a row for each of the min(B, ctas) CTAs
+// launched (the per-position table, the sequence records, the literals),
+// which both kernels may share on one stream.
 
 // The parse's scratch a CTA, in int32 words.
 extern "C" int tpucomp_zstd_encode_scratch_words() { return kScrWords; }
 
+// hist: freq int32[B, 256], sch int32[B, 121].
+extern "C" int tpucomp_zstd_encode_hist(const uint8_t* data, const int32_t* sizes,
+                                        const int32_t* cand, const int32_t* cand8, int batch,
+                                        int cap, const int32_t* cst, int32_t* scratch, int ctas,
+                                        int32_t* freq, int32_t* sch, void* stream) {
+  if (batch <= 0) return 0;
+  if (cap > kMaxPos || ctas <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  static unsigned long long raised = 0;  // one bit a device
+  const cudaError_t e = lzp::raise_smem_limit(zstd_hist_kernel, kZBytes, raised);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  zstd_hist_kernel<<<min(batch, ctas), kPThreads, kZBytes, static_cast<cudaStream_t>(stream)>>>(
+      data, sizes, cand, cand8, batch, cap, cst, scratch, freq, sch);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // full: huf_meta int32[B, 258] (code | nbits << 12 per byte, tree bytes,
-// huf_ok), tree uint8[B, 176], fse_tab int32[B, 54016], nc uint8[B, 512];
-// scratch int32[ctas, scratch_words()], a row for each of the min(B, ctas)
-// CTAs launched (the per-position table, the sequence records, the
-// literals).  cap <= 65536.
+// huf_ok), tree uint8[B, 176], fse_tab int32[B, 54016], nc uint8[B, 512].
 extern "C" int tpucomp_zstd_encode_full(const uint8_t* data, const int32_t* sizes,
                                         const int32_t* cand, const int32_t* cand8, int batch,
                                         int cap, const int32_t* cst, const int32_t* huf_meta,

@@ -6,26 +6,26 @@ Port of :mod:`tpucomp.ops.pallas.zstd_encode` (``_kernel`` in its modes
 ``compress_batch``).  :func:`tpucomp_torch.ops.match.candidates2` (64 KiB
 window: an offset may reach the whole chunk) finds the match candidates;
 ``csrc/zstd_encode.cu`` (its header says what it replaces, what bounds it
-and how it is built) turns them into sequences in one of two modes that see
-the same sequences:
+and how it is built) turns them into the walk's sequences by one gated
+parse, one resident CTA an SM with a row of global scratch each
+(:func:`parse_scratch`): every candidate position tabulated at once
+(:func:`position_table_plain`), the chain the cost gate gives
+(:func:`next_kept_plain`), rounds that add the repeat offsets' keeps
+(:func:`gated_chain_plain`).  Two modes follow the parse:
 
 * ``hist`` — the exact literal-byte histogram and the LL/ML/OF code
-  histograms of the sequences the walk keeps, :func:`hist_kernel` (one warp
-  a chunk walks the sequences serially);
+  histograms of the sequences, :func:`hist_kernel`: the codes' counts and
+  the bytes no kept match covers (:func:`hist_from_chain_plain`);
 * ``full`` — one complete single-block frame: 4-stream Huffman literals (or
   raw ones), the sequences through three FSE state machines, and a raw-block
-  rewrite when that is not shorter, :func:`full_kernel`: a gated parse, one
-  CTA a chunk, with every candidate position tabulated at once
-  (:func:`position_table_plain`), the chain the cost gate gives
-  (:func:`next_kept_plain`), rounds that add the repeat offsets' keeps
-  (:func:`gated_chain_plain`), the literal streams and the FSE states from
-  prefix sums (:func:`huf_offsets_plain`, :func:`fse_states_plain`,
-  :func:`frame_from_parse_plain`).
+  rewrite when that is not shorter, :func:`full_kernel`: the literal
+  streams and the FSE states from prefix sums (:func:`huf_offsets_plain`,
+  :func:`fse_states_plain`, :func:`frame_from_parse_plain`).
 
 Between them, in torch ops over the batch, :func:`seq_tables` builds each
 chunk's FSE tables (custom where they pay, else the predefined ones) and
 :func:`tpucomp_torch.formats.zstd.huf_tree` the literal Huffman table.  With
-``exact_entropy=False`` (the speed rung) there is no ``hist`` walk: the
+``exact_entropy=False`` (the speed rung) there is no ``hist`` kernel: the
 Huffman table comes from the whole chunk's byte histogram and the sequences
 use the predefined tables.  The plain versions run the same walk in Python;
 the CPU tests hold them against the reference and ``chip_smoke.py`` holds the
@@ -519,6 +519,24 @@ def gated_chain_plain(row: bytes, size: int, tab: dict, cap_seq: int):
     return out, s
 
 
+def hist_from_chain_plain(row: bytes, size: int, chain: list) -> tuple[list, list]:
+    """The hist kernel's counting phase on :func:`gated_chain_plain`'s
+    sequences: each sequence's LL, ML and OF codes (OF capped at 31), and
+    the bytes of ``row[:size]`` that no kept match ``[nm2, nm2 + ml)``
+    covers (the literals and the tail), found through a coverage bitmask as
+    the kernel finds them -> ``(freq [256], sch [121])``,
+    :func:`_hist_chunk`'s counts."""
+    covered = np.zeros(size, bool)
+    sch = [0] * 121
+    for s, _, ll, ml, ofv, _ in chain:
+        covered[s + ll:s + ll + ml] = True
+        sch[_ll_code(ll)] += 1
+        sch[36 + _ml_code(ml - 3)] += 1
+        sch[89 + min(ofv.bit_length() - 1, 31)] += 1
+    lits = np.frombuffer(row[:size], np.uint8)[~covered]
+    return np.bincount(lits, minlength=256).tolist(), sch
+
+
 def huf_offsets_plain(lits: bytes, hufpk: list) -> tuple[list, list]:
     """Each literal's bit offset inside its Huffman stream (streams of
     ``ceil(n / 4)`` literals, the last the rest, each written backward: a
@@ -724,6 +742,27 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def parse_scratch(batch: int, device) -> torch.Tensor:
+    """The parse's global scratch, a row of ``tpucomp_zstd_encode_scratch_words()``
+    int32 words for each CTA a launch starts (one an SM, at most ``batch``):
+    864 KiB a row, 132 rows (111 MiB) on an H100.  The hist and full kernels
+    may share one on a stream."""
+    ctas = max(1, min(batch, _sm_count(device)))
+    return torch.empty((ctas, _scratch_words()), dtype=torch.int32, device=device)
+
+
+def _scratch_arg(scratch, batch: int, device) -> list:
+    """The launch's scratch and its CTA count (a new scratch where none is given)."""
+    if scratch is None:
+        scratch = parse_scratch(batch, device)
+    if (scratch.dim() != 2 or scratch.shape[1] != _scratch_words() or scratch.shape[0] < 1
+            or scratch.dtype != torch.int32 or scratch.device != device
+            or not scratch.is_contiguous()):
+        raise ValueError(f"scratch must be int32[ctas, {_scratch_words()}] on {device}, "
+                         "as parse_scratch makes it")
+    return [scratch, scratch.shape[0]]
+
+
 def _call(mode: str, args: list, device) -> None:
     """Launch mode ``mode`` on ``args`` (tensors go as pointers, which keeps
     them alive through the launch; ints as ints)."""
@@ -737,23 +776,27 @@ def _call(mode: str, args: list, device) -> None:
         raise RuntimeError(f"zstd_encode ({mode}) kernel launch failed: cudaError {rc}")
 
 
-def hist_kernel(data, sizes, cands):
-    """Launch the ``hist`` walk of ``csrc/zstd_encode.cu`` over ``cands``
-    (``match.candidates2``'s three tensors) on ``data``'s card, on the
-    current stream -> ``(freq int32[B, 256], sch int32[B, 121])``."""
-    args = _inputs(data, sizes, cands, 3)
+def hist_kernel(data, sizes, cands, scratch=None):
+    """Launch the ``hist`` parse of ``csrc/zstd_encode.cu`` over ``cands``
+    (``match.candidates2``'s tensors; it reads cand and cand8) on ``data``'s
+    card, on the current stream -> ``(freq int32[B, 256], sch int32[B,
+    121])``.  One CTA an SM (at most B), each with a row of ``scratch``
+    (:func:`parse_scratch`; a new one when none is given)."""
+    args = _inputs(data, sizes, cands, 2)
     (B, cap), dev = data.shape, data.device
     freq = torch.empty((B, 256), dtype=torch.int32, device=dev)
     sch = torch.empty((B, 121), dtype=torch.int32, device=dev)
-    _call("hist", args + [B, cap, _cap_seq(cap), _const_on(dev), freq, sch], dev)
+    _call("hist", args + [B, cap, _const_on(dev)] + _scratch_arg(scratch, B, dev)
+          + [freq, sch], dev)
     hist_kernel.launches += 1
     return freq, sch
 
 
-def full_kernel(data, sizes, cands, meta, tree, fse_tab, nc, out_cap: int):
+def full_kernel(data, sizes, cands, meta, tree, fse_tab, nc, out_cap: int, scratch=None):
     """Launch the ``full`` parse against the tables of :func:`huf_meta` and
     :func:`seq_tables` (or :func:`speed_tables`); it reads ``cands``' cand
-    and cand8.  One CTA an SM (at most B), each with a row of scratch."""
+    and cand8.  One CTA an SM (at most B), each with a row of ``scratch``
+    (:func:`parse_scratch`; a new one when none is given)."""
     args = _inputs(data, sizes, cands, 2)
     (B, cap), dev = data.shape, data.device
     if tree.shape != (B, fzstd.TREE_CAP) or tree.dtype != torch.uint8 or tree.device != dev:
@@ -762,14 +805,11 @@ def full_kernel(data, sizes, cands, meta, tree, fse_tab, nc, out_cap: int):
         raise ValueError(f"nc must be uint8[{B}, {NC_CAP}] on {dev}")
     tables = [_int32("meta", meta, (B, HUF_META), dev), tree.contiguous(),
               _int32("fse_tab", fse_tab, (B, FSE_TT), dev), nc.contiguous()]
-    # a CTA's per-position table, sequence records and literals
-    ctas = max(1, min(B, _sm_count(dev)))
-    scratch = torch.empty((ctas, _scratch_words()), dtype=torch.int32, device=dev)
     out = torch.empty((B, out_cap), dtype=torch.uint8, device=dev)
     osz = torch.empty((B,), dtype=torch.int32, device=dev)
     stat = torch.empty((B,), dtype=torch.int32, device=dev)
-    _call("full", args + [B, cap, _const_on(dev)] + tables
-          + [scratch, ctas, out, out_cap, osz, stat], dev)
+    _call("full", args + [B, cap, _const_on(dev)] + tables + _scratch_arg(scratch, B, dev)
+          + [out, out_cap, osz, stat], dev)
     full_kernel.launches += 1
     return out, osz, stat
 
@@ -789,20 +829,22 @@ def _check_cap(data: torch.Tensor) -> None:
 def compress_batch(data: torch.Tensor, sizes: torch.Tensor, out_cap: int,
                    exact_entropy: bool = True):
     """The candidates, the ``hist`` kernel (``exact_entropy``), the tables and
-    the ``full`` kernel, all on the card (``zstd_encode.py:796-982``)."""
+    the ``full`` kernel, all on the card (``zstd_encode.py:796-982``); both
+    kernels use one parse scratch, allocated once a call."""
     if data.device.type != "cuda":
         raise ValueError(f"the Zstandard encode kernels need CUDA tensors, got {data.device}")
     _check_cap(data)
     sizes = _clamped_sizes(data, sizes)
     cands = match.candidates2(data, sizes, window=MAX_CAP)
+    scratch = parse_scratch(data.shape[0], data.device)
     if exact_entropy:
-        freq, sch = hist_kernel(data, sizes, cands)
+        freq, sch = hist_kernel(data, sizes, cands, scratch)
         fse_tab, nc = seq_tables(sch)
     else:
         freq = whole_chunk_hist(data, sizes)
         fse_tab, nc = speed_tables(data.shape[0], data.device)
     meta, tree = huf_meta(freq)
-    return full_kernel(data, sizes, cands, meta, tree, fse_tab, nc, out_cap)
+    return full_kernel(data, sizes, cands, meta, tree, fse_tab, nc, out_cap, scratch)
 
 
 def compress_batch_plain(data: torch.Tensor, sizes: torch.Tensor, out_cap: int,
