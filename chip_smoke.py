@@ -17,7 +17,7 @@ exit code and no result line:
    ``nvcc`` each, in parallel), with their ``-Xptxas -v`` register/shared-memory
    lines, and the Deflate decoder's registers, shared memory, spills and CTAs
    an SM from the runtime;
-3. kernel vs plain: each of the forty-five kernels on the card against its plain
+3. kernel vs plain: each of the forty-seven kernels on the card against its plain
    version on a host copy of the same inputs (<= 8 chunks per corpus at the
    main path's 64 KiB shape, edge and hand-made streams, truncated and
    bit-flipped streams, an out_cap that is too small; rows 3 and 4 (k 1, 3,
@@ -55,7 +55,10 @@ exit code and no result line:
    CTA's scratch row reused); Deflate's hist and emit kernels (rows 11
    and 12) also on tests/gdeflate_walk_stress.py's chunks with 32 KiB
    candidates and those two mixed chunks, with matches and entropy only
-   (emit at two out_caps); for GDeflate, the hist kernel (row 16) on the
+   (emit at two out_caps); row 10, Deflate's fixed mode, in its parse and
+   its walk on the head chunks (with matches and without), on those stress
+   chunks and, the walk alone (the shape the parse does not read whole),
+   on them in rows of 64 KiB + 1024 bytes; for GDeflate, the hist kernel (row 16) on the
    same chunks with 64 KiB candidates, with matches and entropy only,
    the hist and fixed/emit kernels and the whole encode in algos 0/1/2 on the
    head chunks, the edge rows of tests/test_pallas_gdeflate.py and a 64 KiB
@@ -66,9 +69,13 @@ exit code and no result line:
    tests/gdeflate_walk_stress.py (thinned candidates for back extensions,
    the 258 cap, matches ending around mflimit, sizes 0-8, 65535 and 65536,
    a 64 KiB run, a table of 15-bit codes that overflows a lane), then the
-   parse and the replay on those tiles,
+   parse and the replay (row 14: its window and its walk) on those tiles,
    truncated, bit-flipped and future-version tiles and the three tiles of
-   tests/golden/gdeflate.bin, at a 64 KiB and a too-small out_cap; for ANS,
+   tests/golden/gdeflate.bin, at a 64 KiB and a too-small out_cap, and the
+   replay on tests/gdeflate_replay_stress.py's token rows (periodic runs,
+   distances past op early and late, a match past out_cap, chains of 14 or
+   more jumps, one distance across slabs) at out_caps 65536 and 1000 and,
+   the walk alone, 66560; for ANS,
    both encode walks (words, emits, final states, word counts) and frames on
    the head chunks, the edge rows of tests/test_pallas_ans.py and a batch of
    5, at out_cap = bound and 4096, with ``tables_for`` on the card against
@@ -97,8 +104,9 @@ exit code and no result line:
    ``batched.compress`` /
    ``batched.decompress("gdeflate")`` in algos 0, 1, 2 (rows 13-14, 16-17;
    tests/gdeflate_pyref.py reads three tiles of each; rows 16 and 17's
-   hist, fixed and emit ms a corpus on lines of their own, as rows 11 and
-   12's for Deflate), ``batched.compress`` /
+   hist, fixed and emit ms a corpus on lines of their own, as rows 10, 11
+   and 12's for Deflate, and row 14's window and walk by algo),
+   ``batched.compress`` /
    ``batched.decompress("ans")`` (rows 25, 23) with rows 24 and 22 through
    their own wrappers on the same chunks, ``batched.compress`` /
    ``batched.decompress("cascaded")`` (row 26) on three configurations of
@@ -120,6 +128,8 @@ exit code and no result line:
    the wide Snappy path, counted on its own: the staged Snappy streams of
    both corpora through ``batched.decompress`` into rows of 64 KiB + 1024
    bytes, a shape the parse does not take, so row 6's walk decodes them;
+   the wide GDeflate replay path, counted on its own: each corpus's algo-1
+   GDeflate tiles decoded into rows of 64 KiB + 1024 bytes (row 14's walk);
    the probes path, counted on its own: ``_probe.main()`` and ``main2()``,
    then each probe timed beside the one PyTorch call of the same function,
    and the time of each split into host and device (``torch.profiler``);
@@ -191,6 +201,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "zstd_encode": ("zstd_encode.cu", "tpucomp/ops/pallas/zstd_encode.py:237"),
     "gdeflate_parse": ("gdeflate_vdecode.cu", "tpucomp/ops/pallas/gdeflate_vdecode.py:67"),
     "gdeflate_exec": ("gdeflate_vdecode.cu", "tpucomp/ops/pallas/gdeflate_vdecode.py:225"),
+    # row 14's walk: out_caps past 64 KiB, which its window (above) does not
+    # hold (the wide path)
+    "gdeflate_exec_walk": ("gdeflate_vdecode.cu", "tpucomp/ops/pallas/gdeflate_vdecode.py:225"),
     "gdeflate_encode_hist": ("gdeflate_encode.cu", "tpucomp/ops/pallas/gdeflate_encode.py:54"),
     "gdeflate_encode": ("gdeflate_encode.cu", "tpucomp/ops/pallas/gdeflate_encode.py:54"),
     "ans_decode": ("ans_decode.cu", "tpucomp/ops/pallas/ans_decode.py:147"),
@@ -215,7 +228,8 @@ ZSTD_PASSES = ("zstd_chain", "zstd_entropy", "zstd_scan", "zstd_resolve", "zstd_
 VARIANTS = ("lz4_decode_single", "lz4_decode_k", "lz4_encode_hash", "snappy_encode_hash",
             "gdeflate_decode")
 PROBES = tuple(k for k in KERNELS if k.startswith("probe_"))
-OFF_MAIN = VARIANTS + PROBES + ("zstd_walk", "snappy_decode_walk")  # of their own paths
+WALKS = ("snappy_decode_walk", "gdeflate_exec_walk")
+OFF_MAIN = VARIANTS + PROBES + ("zstd_walk",) + WALKS  # of their own paths
 ALGOS = (0, 1, 2)
 CAS_ITERS = 3             # timing iterations of the Cascaded stages
 # Cascaded configurations: nvCOMP's num_RLEs=2, num_deltas=1, use_bp=1
@@ -365,6 +379,7 @@ def main() -> int:
     import gdeflate_pyref as pyref    # the format's serial Python codec (no JAX)
     import deflate_stress as dstress  # Deflate streams that stress the decoder's window
     import gdeflate_walk_stress as gws  # chunks that stress the GDeflate token parse
+    import gdeflate_replay_stress as grs  # token rows that stress the GDeflate replay
     import snappy_stress as ssx         # streams that stress the Snappy element parse
     import zstd_walk_stress as zws      # chunks that stress the Zstandard gated parse
 
@@ -387,6 +402,7 @@ def main() -> int:
                 "zstd_encode": (zstd_encode.full_kernel,),
                 "gdeflate_parse": (gdeflate_vdecode.parse_kernel,),
                 "gdeflate_exec": (gdeflate_vdecode.exec_kernel,),
+                "gdeflate_exec_walk": (gdeflate_vdecode.exec_walk_kernel,),
                 "gdeflate_encode_hist": (gdeflate_encode.hist_kernel,),
                 # row 17: one kernel body in the modes fixed (algo 0) and emit
                 "gdeflate_encode": (gdeflate_encode.fixed_kernel, gdeflate_encode.emit_kernel),
@@ -790,11 +806,20 @@ def main() -> int:
     check(all(torch.equal(g.cpu(), c) for g, c in zip(dc_gpu, dc_cpu)),
           "candidates2 (32 KiB window) on the card differs from the CPU")
     dargs = (d_in.data, d_in.sizes, *dc_cpu)
-    for cap, label in ((dcap, "out_cap = bound"), (1024, "out_cap too small")):
-        compare("deflate_encode_fixed",
-                lambda d, s, a, b, n, oc: deflate_encode.fixed_kernel(d, s, (a, b, n), oc),
-                lambda d, s, a, b, n, oc: deflate_encode.fixed_plain(d, s, (a, b, n), oc),
-                dargs + (cap,), f"{d_in.num_chunks} chunks, algo 0, {label}")
+
+    def fixed_check(rows, cands, caps, label):
+        """Row 10 (the parse of each row's first 64 KiB) against the plain
+        walk at each out_cap."""
+        d, s = rows.data.to(dev), rows.sizes.to(dev)
+        c = None if cands is None else tuple(x.to(dev) for x in cands)
+        for cap in caps:
+            against("deflate_encode_fixed", deflate_encode.fixed_kernel(d, s, c, cap),
+                    plain_once(("deflate_encode_fixed",), deflate_encode.fixed_plain,
+                               rows.data, rows.sizes, cands, cap),
+                    f"{rows.num_chunks} {label}, out_cap {cap}")
+
+    fixed_check(d_in, dc_cpu, (dcap, 1024), "chunks, algo 0")
+    fixed_check(d_in, None, (1024,), "chunks, algo 0 without matches")
     for eo in (False, True):
         how = "entropy only (algo 2)" if eo else "matches (algo 1)"
         a_cpu = dargs if not eo else (d_in.data, d_in.sizes)
@@ -845,6 +870,12 @@ def main() -> int:
                         d, s, None if eo else tuple(r[:-4]), *r[-4:]),
                     wa + wt + (cap,), f"{dws_label}, {'entropy only' if eo else 'matches'}, "
                     f"out_cap {cap}")
+    # row 10 on the same chunks (each at most 64 KiB), in rows of 64 KiB and
+    # of 64 KiB + 1024 bytes (the parse reads a row at its stride)
+    fixed_check(dws, dws_c, (dcap, 1024), dws_label)
+    dws_wide = ChunkBatch.from_chunks([c for _, c in dws_rows], CHUNK + 1024, device="cpu")
+    fixed_check(dws_wide, gws.candidates(dws_wide, dws_names, window=deflate_encode.WINDOW),
+               (dcap,), f"{dws_label} in rows of 64 KiB + 1024 bytes")
 
     # Zstandard encode: the hist and full walks on the head chunks, the edge
     # inputs of tests/test_pallas_zstd.py:25-36,198-226 and its 64 KiB
@@ -1067,14 +1098,36 @@ def main() -> int:
 
     same_on_card("tile_tables", fields(fgdeflate.tile_tables(gd_in.data.to(dev))),
                  fields(fgdeflate.tile_tables(gd_in.data)))
+
+    def replay_both(tokens, n_tok, cap, what):
+        """Row 14: the wrapper's choice (the window up to 64 KiB of output, the
+        walk past it) and the walk, against one plain run."""
+        want = plain_once(("gdeflate_exec", "gdeflate_exec_walk"), gdeflate_vdecode.exec_plain,
+                          tokens, n_tok, cap)
+        fits = gdeflate_vdecode.replay_fits(cap)
+        check(fits == (cap <= CHUNK), f"gdeflate replay: out_cap {cap} takes the wrong kernel")
+        t, n = tokens.to(dev), n_tok.to(dev)
+        against("gdeflate_exec" if fits else "gdeflate_exec_walk",
+                gdeflate_vdecode.exec_kernel(t, n, cap), want, what)
+        against("gdeflate_exec_walk", gdeflate_vdecode.exec_walk_kernel(t, n, cap), want, what)
+        return want
+
+    # row 14 on tests/gdeflate_replay_stress.py's token rows (all literals, no
+    # token and a full capacity, periodic runs at distances 1-8, distances
+    # past op early and late, a match past out_cap mid-tile, a literal at
+    # out_cap, chains of 14 or more jumps, one distance across slabs,
+    # random mixes) at out_caps 65536, 1000 and 66560 (the walk's shape)
+    for cap in grs.OUT_CAPS:
+        toks, ntk, gnames = grs.batch(cap)
+        replay_both(torch.from_numpy(toks), torch.from_numpy(ntk), cap,
+                    f"{len(gnames)} replay stress rows, out_cap {cap}")
     for cap, label in ((CHUNK, "64 KiB out_cap"), (1000, "out_cap too small")):
         what = f"{len(g_dec)} tiles, {label}"
         parse = compare("gdeflate_parse", gdeflate_vdecode.parse_kernel,
                         gdeflate_vdecode.parse_plain, (gd_in.data, gd_in.sizes, cap), what)
         n_eff = torch.minimum(parse[0][:, 1], torch.tensor(parse[1].shape[1],
                                                            dtype=torch.int32))
-        replay = compare("gdeflate_exec", gdeflate_vdecode.exec_kernel,
-                         gdeflate_vdecode.exec_plain, (parse[1], n_eff, cap), what)
+        replay = replay_both(parse[1], n_eff, cap, what)
         want = gdeflate_vdecode._compose(gd_in.data, gd_in.sizes, cap, parse[0], parse[2],
                                          parse[3], *replay)
         got = gdeflate_vdecode.decompress_batch(gd_in.data.to(dev), gd_in.sizes.to(dev), cap)
@@ -1417,6 +1470,29 @@ def main() -> int:
               f"{name} snappy into {CHUNK + 1024}-byte rows: not bit-exact")
     lap("4 wide snappy path")
 
+    # the wide GDeflate replay path, counted on its own: the algo-1 GDeflate
+    # tiles replayed into rows of 64 KiB + 1024 bytes (past the window, so
+    # row 14's walk replays them); the rows must be the corpus's
+    reset_counts()
+    wide = {}
+    for name in batches:
+        gcomp = gresults[name, 1][0]
+        wide[name] = gdeflate_vdecode.decompress_batch(gcomp.data, gcomp.sizes, CHUNK + 1024)
+    torch.cuda.synchronize()
+    wlaunches = read_counts()
+    print(f"[wide] launches in the wide GDeflate replay path: "
+          f"{ {k: v for k, v in wlaunches.items() if v} }")
+    check(wlaunches["gdeflate_exec_walk"] > 0 and wlaunches["gdeflate_exec"] == 0,
+          f"the wide path did not go through row 14's walk alone: {wlaunches}")
+    launches["gdeflate_exec_walk"] = wlaunches["gdeflate_exec_walk"]
+    for name, (gout, gsz, gst) in wide.items():
+        cb = batches[name]
+        check(bool((gst == Status.SUCCESS).all()) and torch.equal(gsz, cb.sizes)
+              and torch.equal(gout[:, :CHUNK], cb.data) and not gout[:, CHUNK:].any(),
+              f"{name} gdeflate into {CHUNK + 1024}-byte rows: not bit-exact")
+    del wide
+    lap("4 wide gdeflate replay path")
+
     # rows 3 and 4 give row 1's bytes, sizes and statuses; the C libraries
     # (where they load) and rows 1 and 6 read every frame of rows 5 and 8;
     # row 15 gives rows 13-14's output on the port's tiles
@@ -1661,6 +1737,7 @@ def main() -> int:
         return interop.libdeflate_decompress(f_r[0], len(f_r[1])) == f_r[1]
 
     win = deflate_encode.WINDOW
+    row10 = {}   # corpus -> row 10's ms: fixed (algo 0)
     row11 = {}   # corpus -> row 11's ms: hist in algos 1 and 2
     row12 = {}   # corpus -> row 12's ms: emit in algos 1 and 2
     for (name, algo), (comp, cst, dec, dst) in dresults.items():
@@ -1691,9 +1768,10 @@ def main() -> int:
             row["candidates2_ms"] = time_ms(torch, lambda: match.candidates2(cb.data, sizes,
                                                                             window=win))
         io_bytes = raw_bytes + 4 * B
-        if algo == 0:
+        if algo == 0:   # row 10
             t = time_ms(torch, lambda: deflate_encode.fixed_kernel(cb.data, sizes, cands, dcap))
             row["fixed_kernel_ms"] = t
+            row10[name] = t
             kernel_ms["deflate_encode_fixed"] += t
             bound["deflate_encode_fixed"] += bytes_bound_ms(io_bytes, B * dcap + 8 * B)
         else:
@@ -1875,6 +1953,8 @@ def main() -> int:
         row["compress_GBps"] = raw_bytes / row["compress_ms"] / 1e6
         row["speed_compress_GBps"] = raw_bytes / row["speed_compress_ms"] / 1e6
         print(f"[full] {json.dumps(row)}")
+    print(f"[row10] Deflate fixed kernel ms a corpus of 1024 x 64 KiB (mean of {ITERS} calls; "
+          f"algo 0): {json.dumps(row10)}; {smi}")
     print(f"[row11] Deflate hist kernel ms a corpus of 1024 x 64 KiB (mean of {ITERS} calls): "
           f"{json.dumps(row11)}")
     print(f"[row12] Deflate emit kernel ms a corpus of 1024 x 64 KiB (mean of {ITERS} calls): "
@@ -1888,6 +1968,7 @@ def main() -> int:
     lap("4 checks and timings, lz4 to zstd")
     row16 = {}   # corpus -> row 16's ms: hist in algos 1 and 2
     row17 = {}   # corpus -> row 17's ms: fixed (algo 0), emit (algos 1 and 2)
+    row14 = {}   # corpus -> row 14's ms by algo: the window (the main path's) and the walk
     for (name, algo), (comp, cst, dec, dst) in gresults.items():
         cb = batches[name]
         B, sizes, raw_bytes = cb.num_chunks, cb.sizes, int(cb.total_bytes)
@@ -1907,6 +1988,10 @@ def main() -> int:
         t_parse = time_ms(torch, lambda: gdeflate_vdecode.parse_kernel(comp.data, comp.sizes,
                                                                        CHUNK))
         t_exec = time_ms(torch, lambda: gdeflate_vdecode.exec_kernel(parse[1], n_eff, CHUNK))
+        t_exec_walk = time_ms(torch, lambda: gdeflate_vdecode.exec_walk_kernel(parse[1], n_eff,
+                                                                              CHUNK))
+        row14.setdefault(name, {})[f"algo{algo}"] = {"window_ms": t_exec,
+                                                     "walk_ms": t_exec_walk}
         gtimes = {"iters": GD_ITERS, "warmup": 1}
         row = {"corpus": name, "format": "gdeflate", "algo": algo, "chunks": B,
                "raw_bytes": raw_bytes, "ratio": raw_bytes / int(comp.total_bytes),
@@ -1916,6 +2001,7 @@ def main() -> int:
                "decompress_ms": time_ms(torch, lambda: batched.decompress("gdeflate", comp,
                                                                            CHUNK)),
                "parse_kernel_ms": t_parse, "exec_kernel_ms": t_exec,
+               "exec_walk_ms": t_exec_walk,
                "tokens": int(n_eff.sum())}
         if cands is not None:
             row["candidates2_ms"] = time_ms(torch, lambda: match.candidates2(cb.data, sizes),
@@ -1955,11 +2041,12 @@ def main() -> int:
         if algo == 1:
             kernel_ms["gdeflate_parse"] += t_parse
             kernel_ms["gdeflate_exec"] += t_exec
+            kernel_ms["gdeflate_exec_walk"] += t_exec_walk
             bound["gdeflate_parse"] += bytes_bound_ms(
                 int(comp.total_bytes) + 4 * B,
                 4 * B * (gdeflate_vdecode.NTAB + parse[1].shape[1] + 2))
-            bound["gdeflate_exec"] += bytes_bound_ms(4 * int(n_eff.sum()) + 4 * B,
-                                                     B * CHUNK + 8 * B)
+            for k in ("gdeflate_exec", "gdeflate_exec_walk"):
+                bound[k] += bytes_bound_ms(4 * int(n_eff.sum()) + 4 * B, B * CHUNK + 8 * B)
         row["compress_GBps"] = raw_bytes / row["compress_ms"] / 1e6
         row["decompress_GBps"] = raw_bytes / row["decompress_ms"] / 1e6
         print(f"[full] {json.dumps(row)}")
@@ -1967,6 +2054,8 @@ def main() -> int:
           f"(mean of {GD_ITERS} calls): {json.dumps(row16)}")
     print(f"[row17] GDeflate fixed and emit kernel ms a corpus of 1024 x 64 KiB "
           f"(mean of {GD_ITERS} calls): {json.dumps(row17)}")
+    print(f"[row14] GDeflate replay ms a corpus of 1024 x 64 KiB tiles by algo (mean of {ITERS} "
+          f"calls; the window, the main path's, and the walk): {json.dumps(row14)}; {smi}")
     print(f"[full] peak device memory of the main-path run: {peak} bytes")
     del results, staged, dresults, dstaged, zresults, zenc, gresults
 
@@ -2216,6 +2305,10 @@ def main() -> int:
           "snappy_decode is row 6's parse and snappy_decode_walk its walk, both timed on the "
           "staged streams at out_cap 64 KiB (the walk's launches from the wide Snappy path's "
           "own run, rows of 64 KiB + 1024 bytes), "
+          "deflate_encode_fixed is row 10, timed in algo 0, gdeflate_exec is row 14's "
+          "window and gdeflate_exec_walk its walk, both timed on the port's algo-1 tiles' "
+          "tokens at out_cap 64 KiB (the walk's launches from the wide path's own run, "
+          "out_cap 64 KiB + 1024), "
           "zstd_encode_hist/zstd_encode in exact entropy, gdeflate_* in algo 1: "
           "gdeflate_encode is the emit mode (the parse; bound_ms leaves out its reads of "
           "cand and cand8, 8 B a position), gdeflate_parse/exec read the port's algo-1 "

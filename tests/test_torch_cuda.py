@@ -39,6 +39,7 @@ from tpucomp_torch.ops.cuda import (_probe, ans_decode, ans_encode, cascaded_exp
 from tpucomp_torch.utils import synth
 
 import deflate_stress as ds
+import gdeflate_replay_stress as grs
 import gdeflate_walk_stress as gws
 import snappy_stress as ssx
 import zstd_walk_stress as zws
@@ -617,6 +618,79 @@ def test_deflate_emit_parse_equals_plain_on_stress_rows(card, algo, out_cap):
                                      *(t.to(card) for t in tables), cap)
     want = deflate_encode.emit_plain(cb.data, cb.sizes, cands, *tables, cap)
     assert _equal(got, want)
+
+
+def _past_sm_count(card, n: int, batch: str) -> torch.Tensor:
+    """Row indices: the rows as they are, or repeated past the card's SM
+    count so that more than one wave of CTAs runs."""
+    if batch == "as is":
+        return torch.arange(n)
+    n_sm = torch.cuda.get_device_properties(card).multi_processor_count
+    return torch.arange(n_sm + n + 1) % n
+
+
+@pytest.mark.parametrize("batch", ["as is", "past the SM count"])
+@pytest.mark.parametrize("out_cap", ["bound", 1024])
+def test_deflate_fixed_parse_equals_plain_on_stress_rows(card, out_cap, batch):
+    """Row 10 (the fixed mode of the emit kernel's parse) on
+    ``tests/gdeflate_walk_stress.py``'s rows with Deflate's 32 KiB
+    candidates and mixed's literal-heavy chunks 850 and 1000, at the bound
+    and at an out_cap too small, as they are and repeated past the SM
+    count."""
+    raw = synth.mixed_corpus(64 << 20, seed=42).tobytes()
+    rows = gws.rows() + [(f"mixed_{k}", raw[k << 16:(k + 1) << 16]) for k in (850, 1000)]
+    names = [n for n, _ in rows]
+    cb = ChunkBatch.from_chunks([c for _, c in rows], gws.CAP, device="cpu")
+    cands = gws.candidates(cb, names, window=deflate_encode.WINDOW)
+    cap = fdeflate.max_compressed_chunk_size(gws.CAP) if out_cap == "bound" else out_cap
+    want = deflate_encode.fixed_plain(cb.data, cb.sizes, cands, cap)
+    idx = _past_sm_count(card, cb.num_chunks, batch)
+    on = lambda t: t[idx].to(card)      # noqa: E731
+    before = deflate_encode.fixed_kernel.launches
+    got = deflate_encode.fixed_kernel(on(cb.data), on(cb.sizes), [on(c) for c in cands], cap)
+    torch.cuda.synchronize()
+    assert deflate_encode.fixed_kernel.launches == before + 1
+    assert _equal(got, tuple(w[idx] for w in want))
+
+
+def test_deflate_fixed_parse_takes_rows_wider_than_64_kib(card):
+    """Chunks of at most 64 KiB (one of exactly 65536 bytes) in rows of
+    64 KiB + 1024 bytes: row 10's parse reads each row at its stride and
+    gives the plain walk's frames."""
+    chunks = [synth.mixed_corpus(65536, seed=6).tobytes(), synth.mortgage_like(60000, seed=2)
+              .tobytes(), synth.mixed_corpus(3000, seed=5).tobytes(), b""]
+    cb = ChunkBatch.from_chunks(chunks, 65536 + 1024, device="cpu")
+    cands = match.candidates2(cb.data, cb.sizes, window=deflate_encode.WINDOW)
+    cap = fdeflate.max_compressed_chunk_size(65536 + 1024)
+    got = deflate_encode.fixed_kernel(cb.data.to(card), cb.sizes.to(card),
+                                      [c.to(card) for c in cands], cap)
+    assert _equal(got, deflate_encode.fixed_plain(cb.data, cb.sizes, cands, cap))
+
+
+@pytest.mark.parametrize("batch", ["as is", "past the SM count"])
+@pytest.mark.parametrize("out_cap", grs.OUT_CAPS)
+def test_gdeflate_replay_equals_plain_on_stress_rows(card, out_cap, batch):
+    """Row 14 on ``tests/gdeflate_replay_stress.py``'s token rows: the
+    window kernel at out_caps 65536 and 1000, the walk (the shape the
+    window does not hold) at 66560, each launch counted by its own wrapper,
+    and the walk at every out_cap; as they are and repeated past the SM
+    count."""
+    toks, n, names = grs.batch(out_cap)
+    t, c = torch.from_numpy(toks), torch.from_numpy(n)
+    want = gdeflate_vdecode.exec_plain(t, c, out_cap)
+    idx = _past_sm_count(card, len(names), batch)
+    window = gdeflate_vdecode.replay_fits(out_cap)
+    assert window == (out_cap <= 65536)
+    before = (gdeflate_vdecode.exec_kernel.launches, gdeflate_vdecode.exec_walk_kernel.launches)
+    got = gdeflate_vdecode.exec_kernel(t[idx].to(card), c[idx].to(card), out_cap)
+    torch.cuda.synchronize()
+    assert (gdeflate_vdecode.exec_kernel.launches,
+            gdeflate_vdecode.exec_walk_kernel.launches) == (before[0] + int(window),
+                                                             before[1] + int(not window))
+    for i in range(len(idx)):
+        assert _equal([g[i] for g in got], [w[idx[i]] for w in want]), names[idx[i]]
+    walk = gdeflate_vdecode.exec_walk_kernel(t[idx].to(card), c[idx].to(card), out_cap)
+    assert _equal(walk, tuple(w[idx] for w in want))
 
 
 @pytest.mark.parametrize("batch", ["as is", "past the SM count"])

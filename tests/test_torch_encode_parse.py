@@ -1,11 +1,12 @@
-"""The Deflate hist and emit kernels' and the Zstandard hist and full
+"""The Deflate hist, emit and fixed kernels' and the Zstandard hist and full
 kernels' plain pieces against the serial walks, on the CPU.
 
-Rows 11 and 12 (``csrc/deflate_encode.cu``'s hist and emit kernels) parse a
+Rows 11, 12 and 10 (``csrc/deflate_encode.cu``'s hist, emit and fixed kernels) parse a
 chunk as GDeflate's rows 16-17 do (``csrc/lz_parse.cuh``; plain versions
 ``lz_parse.next_tokens_plain`` and ``path_plain``); row 11 counts the
-tokens' symbols (``lz_parse.hist_from_path_plain``), row 12 places every
-token's codes by one prefix sum (``deflate_encode.stream_from_path_plain``).  Row 21
+tokens' symbols (``lz_parse.hist_from_path_plain``), rows 12 and 10 place every
+token's codes by one prefix sum (``deflate_encode.stream_from_path_plain``:
+the chunk's table, or the fixed codes).  Row 21
 (``csrc/zstd_encode.cu``'s parse) tabulates every candidate position
 (``zstd_encode.position_table_plain``), follows the chain the cost gate
 gives (``next_kept_plain``) and adds the repeat-offset keeps
@@ -15,7 +16,7 @@ stream from prefix sums (``huf_offsets_plain``, ``fse_states_plain``,
 parse's codes and uncovered bytes (``hist_from_chain_plain``).  Here the pieces are held against the serial
 walks ``deflate_encode._walk`` and ``zstd_encode._walk`` (and their
 counts, ``deflate_encode._hist_chunk`` and ``zstd_encode.hist_plain``) and
-the frames against ``emit_plain`` and
+the frames against ``emit_plain``, ``fixed_plain`` and
 ``full_plain`` (the yardsticks the kernels are
 held against on the card), on ``tests/gdeflate_walk_stress.py``'s chunks
 (with Deflate's 32 KiB candidates), ``tests/zstd_walk_stress.py``'s and
@@ -121,25 +122,30 @@ def test_deflate_parse_is_the_walk(deflate_rows, which):
 
 
 @pytest.mark.parametrize("which,how", [("stress", "dynamic"), ("stress", "entropy only"),
-                                       ("corpora", "dynamic")])
+                                       ("corpora", "dynamic"), ("stress", "fixed"),
+                                       ("corpora", "fixed")])
 def test_deflate_stream_from_path_is_emit_plain(deflate_rows, which, how):
     """Every token's codes placed by one prefix sum of the bit counts (the
     header first, EOB last, the stored rewrite decided from the total) give
-    emit_plain's frames, also at an out_cap too small for most of them."""
+    emit_plain's frames, also at an out_cap too small for most of them; in
+    fixed mode (row 10: the fixed codes and the 3-bit header, no table)
+    fixed_plain's, the walk's."""
     ps = deflate_rows[which]
     cb = ps["cb"]
-    cands, (tab, hw, hb) = (ps["cands"], ps["tables"]) if how == "dynamic" else \
-        (None, ps["tables_eo"])
+    cands, (tab, hw, hb) = (None, ps["tables_eo"]) if how == "entropy only" else \
+        (ps["cands"], ps["tables"])
     tabs, hws, hbs = tab.tolist(), hw.tolist(), hb.tolist()
     frames = []
     for i in range(cb.num_chunks):
         size = int(cb.sizes[i])
         path = ps["paths"][i] if cands is not None else ([], [], size)
+        codes = (None, None) if how == "fixed" else (tabs[i], (hws[i], hbs[i]))
         frames.append(de.stream_from_path_plain(cb.data[i].numpy().tobytes(), size, *path,
-                                                tabs[i], (hws[i], hbs[i])))
+                                                *codes))
     for out_cap in (fdeflate.max_compressed_chunk_size(65536), 1024):
         got = de._frames(frames, out_cap, "cpu")
-        want = de.emit_plain(cb.data, cb.sizes, cands, tab, hw, hb, out_cap)
+        want = de.fixed_plain(cb.data, cb.sizes, cands, out_cap) if how == "fixed" else \
+            de.emit_plain(cb.data, cb.sizes, cands, tab, hw, hb, out_cap)
         assert all(torch.equal(g, w) for g, w in zip(got, want)), out_cap
 
 

@@ -10,9 +10,14 @@ its build): it builds the kernels, makes the two 64 MiB corpora of
 chunks of 64 KiB, and times with CUDA events, in ``--rounds`` rounds of
 ``--iters`` calls after two warm-up calls, the Deflate and GDeflate ``hist``
 kernels (algo 1 on ``candidates2``'s arrays, algo 2 with none), the two
-``emit`` kernels of algo 1, the Zstandard ``hist`` kernel (row 20, on
-``candidates2``'s arrays with the 64 KiB window) and the Snappy decoder (row
-6, on the port's own Snappy frames of the corpus, ``out_cap`` 64 KiB).  It
+``emit`` kernels of algo 1, the Deflate ``fixed`` kernel (row 10, algo 0),
+the Zstandard ``hist`` kernel (row 20, on ``candidates2``'s arrays with the
+64 KiB window), the Snappy decoder (row 6, on the port's own Snappy frames of
+the corpus, ``out_cap`` 64 KiB) and the GDeflate replay (row 14,
+``gdeflate_vdecode.exec_kernel`` on the tokens that ``parse_kernel`` reads
+from the port's own GDeflate tiles of the corpus in algos 0, 1 and 2), and
+two calls end to end around rows 10 and 14: ``batched.compress("deflate")``
+in algo 0 and ``batched.decompress("gdeflate")`` of those tiles.  It
 prints one JSON line: the card's name and
 power limit, the median, least and greatest ms of each kernel and corpus,
 and a digest of each output.  The parent process prints those lines and a
@@ -42,10 +47,13 @@ def _one(tree: Path, rounds: int, iters: int) -> dict:
     import tpucomp_torch
     if Path(tpucomp_torch.__file__).resolve().parent != tree / "tpucomp_torch":
         raise SystemExit(f"ab_time: imported {tpucomp_torch.__file__}, not {tree}")
+    from tpucomp_torch import batched
     from tpucomp_torch.chunk import ChunkBatch
-    from tpucomp_torch.formats import deflate as fdeflate, snappy as fsnappy
+    from tpucomp_torch.formats import deflate as fdeflate, gdeflate as fgdeflate
+    from tpucomp_torch.formats import snappy as fsnappy
     from tpucomp_torch.ops import match
     from tpucomp_torch.ops.cuda import _build, deflate_encode as de, gdeflate_encode as ge
+    from tpucomp_torch.ops.cuda import gdeflate_vdecode as gv
     from tpucomp_torch.ops.cuda import snappy_decode, snappy_encode2, zstd_encode as ze
     from tpucomp_torch.utils import synth
 
@@ -90,6 +98,15 @@ def _one(tree: Path, rounds: int, iters: int) -> dict:
         zc = match.candidates2(d, s, window=ze.MAX_CAP)
         comp, csz, _ = snappy_encode2.compress_batch(
             d, s, fsnappy.max_compressed_chunk_size(CHUNK))
+        replay, tiles = {}, {}   # algo -> the replay's inputs (tokens, n_eff as
+        for algo in (0, 1, 2):   # chip_smoke.py forms it), the tiles
+            tiles[algo] = gcomp = batched.compress("gdeflate", cb, fgdeflate.GdeflateOpts(algo))[0]
+            tabs, toks = gv.parse_kernel(gcomp.data, gcomp.sizes, CHUNK)[:2]
+            replay[algo] = (toks, torch.minimum(tabs[:, 1], torch.tensor(
+                toks.shape[1], dtype=torch.int32, device=toks.device)))
+
+        def batched_call(fn):   # the output batch's tensors and the statuses
+            return lambda: (lambda b, st: (b.data, b.sizes, st))(*fn())
         calls = {"deflate_hist_algo1": lambda: de.hist_kernel(d, s, dc),
                  "deflate_hist_algo2": lambda: de.hist_kernel(d, s, None),
                  "gdeflate_hist_algo1": lambda: ge.hist_kernel(d, s, gc),
@@ -97,7 +114,14 @@ def _one(tree: Path, rounds: int, iters: int) -> dict:
                  "deflate_emit_algo1": lambda: de.emit_kernel(d, s, dc, *dtab, dcap),
                  "gdeflate_emit_algo1": lambda: ge.emit_kernel(d, s, gc, gtab),
                  "zstd_hist": lambda: ze.hist_kernel(d, s, zc),
-                 "snappy_decode": lambda: snappy_decode.decompress_batch(comp, csz, CHUNK)}
+                 "snappy_decode": lambda: snappy_decode.decompress_batch(comp, csz, CHUNK),
+                 "deflate_fixed": lambda: de.fixed_kernel(d, s, dc, dcap),
+                 **{f"gdeflate_exec_algo{a}": (lambda a=a: gv.exec_kernel(*replay[a], CHUNK))
+                    for a in replay},
+                 "deflate_compress_algo0": batched_call(lambda: batched.compress(
+                     "deflate", cb, fdeflate.DeflateOpts(0))),
+                 **{f"gdeflate_decompress_algo{a}": batched_call(
+                     lambda a=a: batched.decompress("gdeflate", tiles[a], CHUNK)) for a in tiles}}
         for what, fn in calls.items():
             ms = time_ms(fn)
             times[f"{name} {what}"] = {"median": statistics.median(ms), "min": min(ms),

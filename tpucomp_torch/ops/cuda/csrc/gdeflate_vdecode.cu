@@ -1,5 +1,5 @@
-// Batched GDeflate tile decode: the 32-lane parse and the token replay, one
-// warp per tile each.
+// Batched GDeflate tile decode: the 32-lane parse, one warp a tile, and the
+// token replay, one CTA a tile (a warp a tile past 64 KiB of output).
 //
 // Replaces the two TPU kernels of tpucomp/ops/pallas/gdeflate_vdecode.py:
 // _parse_kernel (called at :359) and _exec_kernel (called at :410), and the
@@ -30,26 +30,50 @@
 // idle lanes and later rounds are 0.  err bit 1: a lane took another number
 // of dwords than its D (an ok-level condition, not an error).
 //
-// exec (kernel row 14).  The tokens of a tile replay in one pass (the TPU's
-// 4096-token SMEM slabs are not needed): op advances on every token; a
-// literal is written while op < out_cap, a match copied when its distance
-// is in 1..op and op + mlen <= out_cap; a bad distance sets derr, and after
-// the first token not written nothing is written.  The warp takes 32 tokens
-// a step: a shuffle scan gives each token's position, the literals before
-// the first unwritten token store in parallel, then the matches copy in
-// order (overlap-safe, csrc/bytecopy.cuh).  Bytes no token wrote are 0.
+// exec (kernel row 14), the replay.  The tokens of a tile replay with the
+// semantics of the TPU kernel (4096-token SMEM slabs that carry op and a
+// sticky error from one to the next): op advances on every token; a literal is written while op < out_cap, a
+// match copied when its distance is in 1..op and op + mlen <= out_cap; a bad
+// distance anywhere among the n tokens sets derr, and from the first token
+// not written on (at wend) nothing is written.  Bytes no token wrote are 0.
+// Two kernels, chosen by shape once a call (ops/cuda/gdeflate_vdecode.py):
+//  * the window (gdeflate_replay_kernel), out_cap <= 65536, every shape the
+//    batched API makes at its 64 KiB chunk size: one CTA of 1024 threads a
+//    tile over 208 KiB of shared memory (one resident CTA an SM).  The
+//    tokens come in slabs of 8192, eight a thread in two 16-byte loads, the
+//    next slab's loaded while this one is placed.  A block scan of their
+//    lengths gives each token's position; the positions give the distance
+//    check (a block-wide or makes derr) and the tokens not written (a
+//    block-wide min makes wend).  Each token before wend is placed in a
+//    64 KiB output window (csrc/lz_window.cuh): a literal's byte, and a run
+//    start with the distance of its bytes' sources (0 for a literal); a
+//    match at the distance of the token before it continues that one's run,
+//    one periodic copy.  A scan of the run starts gives every byte its
+//    source, pointer jumping (at most 16 rounds for 64 KiB) the literal byte
+//    it copies, and the row goes out in 16-byte stores with its zero tail
+//    (a tile of literals alone skips the sources).  Slabs past wend only add
+//    their lengths and distance checks.
+//  * the walk (gdeflate_exec_kernel), any shape: one warp a tile, 32 tokens
+//    a step: a shuffle scan gives each token's position, the literals before
+//    the first unwritten token store in parallel, then the matches copy in
+//    order into the global row (overlap-safe, csrc/bytecopy.cuh).
 //
 // Bound: bytes.  parse reads each tile once (its header, description and
 // the dwords its lanes take) and writes B x (456 + 4 x R_cap x 32) bytes of
-// tables and tokens; exec reads the tokens and writes B x out_cap bytes.
-// Both are serial within a tile (a round of 32 lanes, one token group) and
-// parallel across tiles: one warp a tile, four warps a block.
+// tables and tokens; exec reads the n tokens of each tile and writes B x
+// out_cap bytes.  The parse is serial within a tile (a round of 32 lanes, one
+// token group) and parallel across tiles: one warp a tile, four warps a
+// block; so is the walk.  The window takes a tile's tokens 8192 at a time
+// and its bytes at once, so a tile is a few block-wide steps a slab and
+// about ten over its window, with one CTA an SM.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 #include "bytecopy.cuh"
+#include "lz_parse.cuh"
+#include "lz_window.cuh"
 
 namespace {
 
@@ -362,6 +386,160 @@ gdeflate_exec_kernel(const int32_t* __restrict__ tokens, const int32_t* __restri
   }
 }
 
+// ================================================================ replay ==
+using lzp::kPThreads;
+using lzp::kPWarps;
+using lzw::kMaxOut;
+constexpr int kTokThread = 8;                      // tokens a thread a slab
+constexpr int kSlab = kTokThread * kPThreads;      // tokens a slab
+constexpr int kNoEnd = 0x7FFFFFFF;                 // wend: every token written
+
+// Shared memory, in bytes: each byte's source (u16), the window, the run
+// starts (a bitmask), the run carries (lz_window.cuh's scratch), the scan
+// scratch, each warp's last token code, the misc words.
+constexpr int kRSrc = 0;                           // u16 [kMaxOut]
+constexpr int kRWin = kRSrc + 2 * kMaxOut;         // u8 [kMaxOut]
+constexpr int kRStarts = kRWin + kMaxOut;          // u32 [kMaxOut / 32]
+constexpr int kRCarry = kRStarts + kMaxOut / 8;    // u32 [kMaxOut / 32]
+constexpr int kRScr = kRCarry + kMaxOut / 8;       // long long [32]
+constexpr int kRLast = kRScr + 8 * 32;             // int [kPWarps]
+constexpr int kRMisc = kRLast + 4 * kPWarps;       // int [4]
+constexpr int kRTotal = kRMisc + 4 * 4;
+static_assert(kRStarts % 16 == 0 && kRScr % 8 == 0, "alignment");
+static_assert(kRTotal <= lzp::kSmemMax, "more shared memory than a Hopper CTA may have");
+
+enum RMisc { kWend = 0, kSlabOut = 1, kPrevCode = 2 };  // kPrevCode: two words, by slab parity
+
+__global__ void __launch_bounds__(kPThreads, 1)
+gdeflate_replay_kernel(const int32_t* __restrict__ tokens, const int32_t* __restrict__ n_tok,
+                       int ntok_cap, uint8_t* __restrict__ out, int out_cap,
+                       int32_t* __restrict__ op_out, int32_t* __restrict__ derr_out) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint16_t* srcpos = reinterpret_cast<uint16_t*>(smem + kRSrc);
+  uint8_t* win = smem + kRWin;
+  uint32_t* starts = reinterpret_cast<uint32_t*>(smem + kRStarts);
+  uint32_t* carry = reinterpret_cast<uint32_t*>(smem + kRCarry);
+  long long* scr = reinterpret_cast<long long*>(smem + kRScr);
+  int* last = reinterpret_cast<int*>(smem + kRLast);
+  int* misc = reinterpret_cast<int*>(smem + kRMisc);
+  const int chunk = blockIdx.x, tid = threadIdx.x, lane = tid & 31, wi = tid >> 5;
+  const int32_t* toks = tokens + static_cast<size_t>(chunk) * ntok_cap;
+  uint8_t* orow = out + static_cast<size_t>(chunk) * out_cap;
+  const int n = n_tok[chunk];  // in [0, ntok_cap]: the wrapper clamps it
+  const bool vec = (reinterpret_cast<uintptr_t>(toks) & 15) == 0;
+  for (int i = tid; i < kMaxOut / 32; i += kPThreads) starts[i] = 0;
+  if (tid == 0) misc[kWend] = kNoEnd, misc[kPrevCode] = 0;
+  __syncthreads();
+
+  // tokens [base + 8 tid, base + 8 tid + 8) of a slab (0 past n)
+  auto load = [&](int base, int (&t)[kTokThread]) {
+    const int i0 = base + kTokThread * tid;
+    if (vec && i0 + kTokThread <= n) {
+      const int4 a = __ldg(reinterpret_cast<const int4*>(toks + i0));
+      const int4 b = __ldg(reinterpret_cast<const int4*>(toks + i0 + 4));
+      t[0] = a.x, t[1] = a.y, t[2] = a.z, t[3] = a.w, t[4] = b.x, t[5] = b.y, t[6] = b.z,
+      t[7] = b.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < kTokThread; ++k) t[k] = i0 + k < n ? __ldg(toks + i0 + k) : 0;
+    }
+  };
+  // a token's code: its distance for a match, 0 for a literal (a written
+  // match's distance is at least 1)
+  auto code_of = [](int t) { return t >= kMatchFlag ? t & 0x1FFFF : 0; };
+
+  int cur[kTokThread], nxt[kTokThread];
+  load(0, cur);
+  long long op = 0;  // the tokens' bytes before this slab
+  int wend = kNoEnd;
+  bool bad = false, matched = false;
+  for (int base = 0, s = 0; base < n; base += kSlab, ++s) {
+    if (base + kSlab < n) load(base + kSlab, nxt);
+    const int nv = min(max(n - (base + kTokThread * tid), 0), kTokThread);
+    int len[kTokThread], mine = 0;
+#pragma unroll
+    for (int k = 0; k < kTokThread; ++k) {
+      const int t = cur[k];
+      len[k] = k >= nv ? 0 : t >= kMatchFlag ? ((t >> 17) & 0xFF) + 3 : 1;
+      mine += len[k];
+    }
+    const int before = lzp::block_scan_excl<int>(
+        mine, 0, [](int a, int b) { return a + b; }, reinterpret_cast<int*>(scr), lane, wi);
+    // the distance checks and the first token not written (only the first
+    // slab with one sets wend)
+    const bool live = wend == kNoEnd;
+    long long p = op + before, first = kNoEnd;
+#pragma unroll
+    for (int k = 0; k < kTokThread; ++k) {
+      const int t = cur[k], dist = t & 0x1FFFF;
+      const bool v = k < nv, m = v && t >= kMatchFlag;
+      const bool b = m && (dist < 1 || dist > p);
+      const bool skip = v && (m ? b || p + len[k] > out_cap : p >= out_cap);
+      bad = bad || b;
+      if (skip && first == kNoEnd) first = p;
+      p += len[k];
+    }
+    if (live && first != kNoEnd)  // the tile's first is at most out_cap
+      atomicMin(misc + kWend, static_cast<int>(min(first, static_cast<long long>(kNoEnd))));
+    const int code7 = code_of(cur[kTokThread - 1]);
+    if (lane == 31) last[wi] = code7;
+    if (tid == kPThreads - 1) {
+      misc[kSlabOut] = before + mine;
+      misc[kPrevCode + ((s + 1) & 1)] = code7;  // the next slab's first token's previous
+    }
+    __syncthreads();
+    wend = misc[kWend];
+    const int slab_out = misc[kSlabOut];
+    if (live) {
+      // the tokens before wend: a literal's byte, a run start (its bit, and
+      // its sources' distance) where a token does not continue the run of
+      // the one before; the bits of one starts word or-ed in at once
+      const int up = __shfl_up_sync(lzp::kFull, code7, 1);
+      int prev = tid == 0 ? misc[kPrevCode + (s & 1)] : lane == 0 ? last[wi - 1] : up;
+      int o = static_cast<int>(op + before);  // live: op <= out_cap
+      int word = -1;
+      uint32_t bits = 0;
+#pragma unroll
+      for (int k = 0; k < kTokThread; ++k) {
+        const int t = cur[k], code = code_of(t);
+        if (k < nv && o < wend) {
+          if (code == 0) win[o] = static_cast<uint8_t>(t);
+          matched = matched || code != 0;
+          if (code == 0 || code != prev) {
+            srcpos[o] = static_cast<uint16_t>(code);
+            if ((o >> 5) != word) {
+              if (bits) atomicOr(starts + word, bits);
+              word = o >> 5, bits = 0;
+            }
+            bits |= 1u << (o & 31);
+          }
+        }
+        prev = code;
+        o += len[k];
+      }
+      if (bits) atomicOr(starts + word, bits);
+    }
+    op += slab_out;
+#pragma unroll
+    for (int k = 0; k < kTokThread; ++k) cur[k] = nxt[k];
+  }
+
+  bad = __syncthreads_or(bad);
+  matched = __syncthreads_or(matched);
+  const int end = static_cast<int>(min(wend == kNoEnd ? op : static_cast<long long>(wend),
+                                       static_cast<long long>(out_cap)));
+  if (tid == 0) {
+    op_out[chunk] = static_cast<int32_t>(op);
+    derr_out[chunk] = bad ? 1 : 0;
+  }
+  if (matched) {
+    lzw::resolve_sources(srcpos, starts, carry, scr, end, tid, lane, wi);
+    lzw::flush(orow, out_cap, end, win, srcpos, tid);
+  } else {
+    lzw::flush(orow, out_cap, end, win, nullptr, tid);
+  }
+}
+
 int blocks_for(int batch) { return (batch + kWarpsPerBlock - 1) / kWarpsPerBlock; }
 
 }  // namespace
@@ -378,9 +556,25 @@ extern "C" int tpucomp_gdeflate_parse(const uint8_t* comp, int batch, int comp_c
   return static_cast<int>(cudaGetLastError());
 }
 
+// The window: out_cap <= 65536 (ops/cuda/gdeflate_vdecode.py's
+// replay_fits); other shapes are refused.
 extern "C" int tpucomp_gdeflate_exec(const int32_t* tokens, const int32_t* n_tok, int batch,
                                      int ntok_cap, uint8_t* out, int out_cap, int32_t* op,
                                      int32_t* derr, void* stream) {
+  if (batch <= 0) return 0;
+  if (out_cap > kMaxOut) return static_cast<int>(cudaErrorInvalidValue);
+  static unsigned long long raised = 0;  // one bit a device
+  const cudaError_t e = lzp::raise_smem_limit(gdeflate_replay_kernel, kRTotal, raised);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  gdeflate_replay_kernel<<<batch, kPThreads, kRTotal, static_cast<cudaStream_t>(stream)>>>(
+      tokens, n_tok, ntok_cap, out, out_cap, op, derr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The walk: any shape.
+extern "C" int tpucomp_gdeflate_exec_walk(const int32_t* tokens, const int32_t* n_tok,
+                                          int batch, int ntok_cap, uint8_t* out, int out_cap,
+                                          int32_t* op, int32_t* derr, void* stream) {
   if (batch <= 0) return 0;
   gdeflate_exec_kernel<<<blocks_for(batch), kWarpsPerBlock * 32, 0,
                          static_cast<cudaStream_t>(stream)>>>(tokens, n_tok, batch, ntok_cap,

@@ -73,7 +73,8 @@
 //     byte its source, o - the distance of the last start at or before it;
 //     the copy chains are resolved by pointer jumping (at most 16 rounds for
 //     64 KiB; bytes whose source is a literal's are skipped), and the row is
-//     flushed in 16-byte stores with its zero tail.
+//     flushed in 16-byte stores with its zero tail (the resolution and the
+//     flush are csrc/lz_window.cuh's, shared with the GDeflate replay).
 // The tail: a chain may leave [0, np) only when csize > wpad.  Past wpad
 // every element is one of four (its tag from the last two words, by x & 3;
 // its literal bytes 0), so lane 0 walks the tail and, once a position's
@@ -94,6 +95,7 @@
 
 #include "bytecopy.cuh"
 #include "lz_parse.cuh"
+#include "lz_window.cuh"
 
 namespace {
 
@@ -287,7 +289,7 @@ snappy_walk_kernel(const uint8_t* __restrict__ comp, const int32_t* __restrict__
 
 // ================================================================== parse ==
 using lzp::kPThreads;
-constexpr int kMaxOut = 65536;     // the largest out_cap the parse takes
+using lzw::kMaxOut;                // the largest out_cap the parse takes
 constexpr int kMaxComp = 81920;    // the largest padded row (wpad) it takes
 constexpr int kCWords = kMaxComp / 32;
 constexpr int kBlk = 128;          // positions a block of the chain's leavers (4 words)
@@ -456,38 +458,6 @@ __device__ __forceinline__ void place(const Elem& e, int o, int& prev, const Wor
     queue[q + k] = static_cast<uint32_t>(o + k * kPiece) | (static_cast<uint32_t>(len - 1) << 17);
     queue[kQueue + q + k] = static_cast<uint32_t>(e.lit + k * kPiece);
   }
-}
-
-// The row's bytes: o < n the window's byte at o's source, then 0; single
-// bytes to a 16-byte boundary, then 16 bytes a store.
-__device__ __forceinline__ void flush(uint8_t* orow, int out_cap, int n, const uint8_t* win,
-                                      const uint16_t* srcpos, int tid) {
-  auto val = [&](int o) { return o < n ? static_cast<uint32_t>(win[srcpos[o]]) : 0u; };
-  const int a =
-      min(out_cap, static_cast<int>((16 - (reinterpret_cast<uintptr_t>(orow) & 15)) & 15));
-  if (tid < a) orow[tid] = static_cast<uint8_t>(val(tid));
-  const int n16 = (out_cap - a) >> 4;
-  for (int i = tid; i < n16; i += kPThreads) {
-    const int o = a + 16 * i;
-    uint32_t w[4];
-    if ((a & 7) == 0 && o + 16 <= n) {  // the 16 sources in two 16-byte loads
-      const uint4 s0 = *reinterpret_cast<const uint4*>(srcpos + o);
-      const uint4 s1 = *reinterpret_cast<const uint4*>(srcpos + o + 8);
-      const uint32_t sw[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        w[k] = win[sw[2 * k] & 0xFFFF] | (win[sw[2 * k] >> 16] << 8) |
-               (win[sw[2 * k + 1] & 0xFFFF] << 16) | (win[sw[2 * k + 1] >> 16] << 24);
-    } else {
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        w[k] = val(o + 4 * k) | (val(o + 4 * k + 1) << 8) | (val(o + 4 * k + 2) << 16) |
-               (val(o + 4 * k + 3) << 24);
-    }
-    *reinterpret_cast<uint4*>(orow + o) = make_uint4(w[0], w[1], w[2], w[3]);
-  }
-  const int b = a + 16 * n16;
-  if (tid < out_cap - b) orow[b + tid] = static_cast<uint8_t>(val(b + tid));
 }
 
 __global__ void __launch_bounds__(kPThreads, 1)
@@ -736,71 +706,10 @@ snappy_parse_kernel(const uint8_t* __restrict__ comp, const int32_t* __restrict_
     const int s = static_cast<int>(queue[kQueue + q]);
     for (int i = lane; i < len; i += 32) win[o + i] = static_cast<uint8_t>(src.byte(s + i));
   }
-  // each output byte's source, from the last run start s0 at or before it
-  // and its distance d: o for a literal's byte, s0 - d + (o - s0) mod d for
-  // a copied one (a run is one copy, periodic where d is below its length).
-  // a. The (s0, d) carried into each starts word (thread tid takes words 2
-  // tid and 2 tid + 1; a scan carries the last run start's across threads),
-  // over the marks, which phase 5 reads no more
-  uint32_t* carry = marks;
-  {
-    const int w = 2 * tid;
-    const uint32_t m0 = 64 * tid < n ? starts[w] : 0u, m1 = 64 * tid + 32 < n ? starts[w + 1] : 0u;
-    const int x0 = m0 ? 32 * w + 31 - __clz(m0) : -1, x1 = m1 ? 32 * w + 63 - __clz(m1) : -1;
-    const long long l0 = x0 >= 0 ? (static_cast<long long>(x0) << 16) | srcpos[x0] : -1;
-    const long long l1 = x1 >= 0 ? (static_cast<long long>(x1) << 16) | srcpos[x1] : -1;
-    const long long cur = lzp::block_scan_excl<long long>(
-        l1 >= 0 ? l1 : l0, -1LL, [](long long a, long long b) { return b >= 0 ? b : a; }, scr,
-        lane, wi);
-    carry[w] = static_cast<uint32_t>(cur);
-    carry[w + 1] = static_cast<uint32_t>(l0 >= 0 ? l0 : cur);
-  }
-  __syncthreads();
-  // b. a warp a word, a lane a byte: the last run start in the word at or
-  // before the lane (read by every lane before any writes), else the
-  // word's carry
-  for (int w = wi; 32 * w < n; w += lzp::kPWarps) {
-    const int o = 32 * w + lane;
-    const uint32_t mk = starts[w] & (0xFFFFFFFFu >> (31 - lane));
-    const int s0 = mk ? 32 * w + 31 - __clz(mk) : static_cast<int>(carry[w] >> 16);
-    const int d = mk ? srcpos[s0] : static_cast<int>(carry[w] & 0xFFFF);
-    __syncwarp();
-    if (o < ((n + 3) & ~3)) {  // the bytes past n in the last four: their own sources
-      const int i = o - s0;
-      const int r = i < d ? i : (d & (d - 1)) == 0 ? i & (d - 1) : i % d;
-      srcpos[o] = static_cast<uint16_t>(o < n && d > 0 ? s0 - d + r : o);
-    }
-  }
-  // pointer jumping: src = src[src] until every source is a literal's
-  // byte (its own source), four bytes a step (bytes 4 q to 4 q + 3 for q =
-  // tid + k * kPThreads); reads of a source another thread is moving give
-  // one or the other ancestor, both right.  Bit k of done: those four have
-  // their literals
-  {
-    uint2* s4 = reinterpret_cast<uint2*>(srcpos);
-    const int nq4 = (n + 3) / 4;
-    uint32_t done = 0;
-    bool again = true;
-    while (__syncthreads_or(again)) {
-      again = false;
-#pragma unroll 4
-      for (int k = 0; k < kMaxOut / 4 / kPThreads; ++k) {
-        const int qd = tid + k * kPThreads;
-        if (((done >> k) & 1) || qd >= nq4) continue;
-        const uint2 v = s4[qd];
-        const uint32_t q0 = srcpos[v.x & 0xFFFF], q1 = srcpos[v.x >> 16];
-        const uint32_t q2 = srcpos[v.y & 0xFFFF], q3 = srcpos[v.y >> 16];
-        const uint2 nv = make_uint2(q0 | (q1 << 16), q2 | (q3 << 16));
-        if (nv.x == v.x && nv.y == v.y) {
-          done |= 1u << k;
-        } else {
-          s4[qd] = nv;
-          again = true;
-        }
-      }
-    }
-  }
-  flush(dst, out_cap, n, win, srcpos, tid);
+  // each output byte's source (csrc/lz_window.cuh), the run carries over
+  // the marks, which phase 5 reads no more; then the row
+  lzw::resolve_sources(srcpos, starts, marks, scr, n, tid, lane, wi);
+  lzw::flush(dst, out_cap, n, win, srcpos, tid);
 }
 
 }  // namespace

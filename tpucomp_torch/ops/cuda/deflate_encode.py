@@ -12,17 +12,17 @@ modes that see the same tokens:
 * ``emit`` — one block with the chunk's dynamic tables and the pre-packed
   header from :func:`dyn_tables` (torch ops), :func:`emit_kernel`;
 
-and rewrites a stream longer than stored blocks as stored blocks.  ``fixed``
-walks a chunk's tokens serially, one warp a chunk.  ``hist`` and ``emit``
+and rewrites a stream longer than stored blocks as stored blocks.  All three
 parse a chunk in parallel, one CTA a chunk, as GDeflate's kernels do
 (``csrc/lz_parse.cuh``; plain pieces in :mod:`tpucomp_torch.ops.cuda.lz_parse`):
 ``hist`` then counts the tokens' symbols in the counting phase it shares with
 GDeflate (``lz_parse.hist_from_path_plain`` is its plain version; entropy
-only, a byte histogram with no parse), and ``emit`` places every token's
-codes by one prefix sum of their bit counts (:func:`stream_from_path_plain`
-is that emission's plain version).  Both read at most a row's first 64 KiB
-(Deflate's largest chunk; ``batched.compress`` gives a larger chunk
-``ERROR_CHUNK_SIZE_TOO_LARGE``).
+only, a byte histogram with no parse), and ``emit`` and ``fixed``, one
+kernel body in two modes, place every token's codes by one prefix sum of
+their bit counts (:func:`stream_from_path_plain` is that emission's plain
+version, with the chunk's table or the fixed codes).  All three read at
+most a row's first 64 KiB (Deflate's largest chunk; ``batched.compress``
+gives a larger chunk ``ERROR_CHUNK_SIZE_TOO_LARGE``).
 :func:`compress_batch` is algo 0; :func:`compress_batch_dyn` is algo 1
 (hist, tables, emit) and, with ``entropy_only``, algo 2 (no matches).  The
 plain versions run the same walks in Python; the CPU tests hold them against
@@ -63,6 +63,13 @@ def _rev(v: int, n: int) -> int:
 
 _FIXED_LIT = [(_rev(0x30 + v, 8), 8) if v < 144 else (_rev(0x190 + v - 144, 9), 9)
               for v in range(256)]
+# the fixed codes as an emit table (bit-reversed code | length << 16; litlen
+# 0..287, distances at 288..317) and the fixed block's 3-bit header 011
+_FIXED_TAB = ([c | n << 16 for c, n in _FIXED_LIT]
+              + [_rev(s - 256, 7) | 7 << 16 for s in range(256, 280)]
+              + [_rev(0xC0 + s - 280, 8) | 8 << 16 for s in range(280, 288)]
+              + [_rev(d, 5) | 5 << 16 for d in range(30)])
+_FIXED_HDR = ([0b011], 3)
 
 
 def _len_sym(ml: int) -> tuple[int, int, int]:
@@ -204,14 +211,17 @@ def _stored(row: bytes, size: int) -> bytearray:
 
 
 def stream_from_path_plain(row: bytes, size: int, matches: list, numbers: list, tokens: int,
-                           tab: list, hdr: tuple[list, int]) -> bytearray:
+                           tab: list | None, hdr: tuple[list, int] | None) -> bytearray:
     """The emit kernel's frame of one chunk from its parse
     (``lz_parse.path_plain``'s ``matches``, ``numbers``, ``tokens``): every
     token's code bits (a literal's code, or a match's length code, length
     extra, distance code, distance extra), their offsets a prefix sum that
     starts after the ``hdr`` bits, the end-of-block code last; the byte
     count ``ceil(bits / 8)`` decides the stored-block rewrite before any
-    bit is placed."""
+    bit is placed.  ``tab`` and ``hdr`` None: the fixed kernel's frame (the
+    fixed codes after the header 011)."""
+    if tab is None:
+        tab, hdr = _FIXED_TAB, _FIXED_HDR
     words_h, hn = hdr
     t_of = np.asarray(numbers, np.int64)
     lit = np.ones(tokens, bool)
@@ -463,9 +473,10 @@ def _call(mode: str, argtypes: list, args: list, device) -> None:
 
 
 def fixed_kernel(data, sizes, cands, out_cap: int):
-    """Launch the ``fixed`` walk of ``csrc/deflate_encode.cu`` (algo 0) over
+    """Launch ``csrc/deflate_encode.cu``'s ``fixed`` mode (algo 0) over
     ``cands`` (``match.candidates2``'s three tensors, or None for no
-    matches) on ``data``'s card, on the current stream."""
+    matches) on ``data``'s card, on the current stream: the parse of each
+    row's first 64 KiB and the fixed codes of its tokens."""
     args = _inputs(data, sizes, cands)
     out, osz, stat = _frame_outputs(data, out_cap)
     _call("fixed", [_P, _I, _P, _P],

@@ -2,22 +2,31 @@
 Hopper kernels, with their plain versions.
 
 Port of :mod:`tpucomp.ops.pallas.gdeflate_vdecode` (``_parse_kernel``,
-``_exec_kernel``, ``decompress_batch``).  Two kernels in
-``csrc/gdeflate_vdecode.cu`` (one warp per tile each; its header says what
-they replace, what bounds them and how they are built):
+``_exec_kernel``, ``decompress_batch``).  The kernels are in
+``csrc/gdeflate_vdecode.cu`` (its header says what they replace, what bounds
+them and how they are built):
 
 * :func:`parse_kernel` — builds the tile's header fields and canonical tables
   in shared memory (what :func:`tpucomp_torch.formats.gdeflate.tile_tables`
   computes), then decodes 32 tokens a round, warp lane ``j`` on GDeflate lane
   ``j``, into one packed int32 token each: a literal is its byte, a match
   ``1 << 25 | (mlen - 3) << 17 | dist``;
-* :func:`exec_kernel` — replays the tokens into the output row.
+* :func:`exec_kernel` — replays the tokens into the output row: where
+  :func:`replay_fits` (``out_cap <= 65536``, every shape the batched API makes
+  at its 64 KiB chunk size) one CTA a tile, the tokens' positions by block
+  scans and the bytes in a 64 KiB shared-memory window (a source a byte,
+  pointer jumping), else the walk, one warp a tile
+  (:func:`exec_walk_kernel`); the choice is made once a call, by shape.
 
 The plain versions compute the same outputs: :func:`parse_plain` with
 ``tile_tables`` and the rounds in torch ops over the batch, :func:`exec_plain`
-in Python.  :func:`decompress_batch` composes the statuses exactly as the
-reference (``gdeflate_vdecode.py:435-467``); :func:`decompress_batch_plain` is
-its plain twin.
+in Python.  The window kernel's plain pieces (:func:`replay_positions_plain`,
+:func:`replay_sources_plain`, :func:`replay_jump_plain`, composed by
+:func:`exec_window_plain`) are held against :func:`exec_plain` in the CPU
+tests, and ``chip_smoke.py`` holds both kernels against it.
+:func:`decompress_batch` composes the statuses exactly as the reference
+(``gdeflate_vdecode.py:435-467``); :func:`decompress_batch_plain` is its
+plain twin.
 
 Contract (the reference's): ``comp uint8[B, comp_cap]`` plus ``comp_sizes
 int32[B]`` -> ``(out uint8[B, out_cap], out_sizes int32[B], statuses
@@ -217,6 +226,84 @@ def exec_plain(tokens: torch.Tensor, n_tok: torch.Tensor, out_cap: int):
             torch.from_numpy(derr).to(dev))
 
 
+def replay_positions_plain(toks: np.ndarray, n: int, out_cap: int):
+    """The window kernel's positions of one tile's first ``n`` tokens (its
+    block scans over slabs): ``(pos int64[n], length int64[n], is_match
+    bool[n], dist int64[n], wend, op, derr)``.  ``wend`` is the position of
+    the first token not written (a literal at or past ``out_cap``, a match
+    past it or with a distance outside ``1..pos``), None where every token
+    is written; ``op`` the tokens' bytes; ``derr`` 1 where any distance is
+    bad, past ``wend`` too."""
+    t = np.asarray(toks[:n], np.int64)
+    is_m = t >= MATCH_FLAG
+    dist = t & 0x1FFFF
+    length = np.where(is_m, ((t >> 17) & 0xFF) + 3, 1)
+    pos = np.cumsum(length) - length
+    bad = is_m & ((dist < 1) | (dist > pos))
+    skip = np.where(is_m, bad | (pos + length > out_cap), pos >= out_cap)
+    first = np.flatnonzero(skip)
+    wend = int(pos[first[0]]) if first.size else None
+    return pos, length, is_m, dist, wend, int(length.sum()), int(bad.any())
+
+
+def replay_sources_plain(toks: np.ndarray, pos, is_m, dist, end: int):
+    """The window of one tile's bytes ``[0, end)`` from the tokens written
+    there: ``(window uint8[end], src int64[end], matched)``.  Each literal's
+    byte goes into the window and starts a run at distance 0; a match starts
+    a run at its distance unless the token before it is a match at the same
+    distance (then it continues that run: one periodic copy).  Each byte's
+    source comes from the last run start ``s0`` at or before it and the
+    run's distance ``d``: itself for ``d`` 0, else ``s0 - d + (o - s0) mod
+    d``.  ``matched``: any match was written (else every source is the byte
+    itself)."""
+    k = int(np.searchsorted(pos, end))          # the tokens before end
+    code = np.where(is_m[:k], dist[:k], 0)
+    prev = np.concatenate([[0], code[:-1]])
+    start = (code == 0) | (code != prev)
+    window = np.zeros(end, np.uint8)
+    lit = ~is_m[:k]
+    window[pos[:k][lit]] = np.asarray(toks[:k], np.int64)[lit] & 0xFF
+    s, d = pos[:k][start], code[start]
+    o = np.arange(end, dtype=np.int64)
+    j = np.searchsorted(s, o, side="right") - 1
+    s0, d0 = s[j], d[j]
+    i = o - s0
+    src = np.where(d0 > 0, s0 - d0 + np.where(i < d0, i, i % np.maximum(d0, 1)), o)
+    return window, src, bool(is_m[:k].any())
+
+
+def replay_jump_plain(src: np.ndarray):
+    """Pointer jumping: ``src = src[src]`` until every source is its own
+    (a literal's byte).  Returns ``(src, rounds)``, the rounds that changed
+    a source (at most 16 for 64 KiB)."""
+    rounds = 0
+    while True:
+        nxt = src[src]
+        if np.array_equal(nxt, src):
+            return src, rounds
+        src, rounds = nxt, rounds + 1
+
+
+def exec_window_plain(tokens: torch.Tensor, n_tok: torch.Tensor, out_cap: int):
+    """The window kernel's pieces composed over a batch: the same outputs as
+    :func:`exec_plain` (``out``, ``op``, ``derr``)."""
+    toks = tokens.cpu().numpy()
+    counts = n_tok.cpu().numpy().astype(np.int64)
+    B = toks.shape[0]
+    out = np.zeros((B, out_cap), np.uint8)
+    ops = np.zeros(B, np.int32)
+    derr = np.zeros(B, np.int32)
+    for b in range(B):
+        n = max(0, int(counts[b]))
+        pos, _, is_m, dist, wend, ops[b], derr[b] = replay_positions_plain(toks[b], n, out_cap)
+        end = min(ops[b] if wend is None else wend, out_cap)
+        window, src, matched = replay_sources_plain(toks[b], pos, is_m, dist, end)
+        out[b, :end] = window[replay_jump_plain(src)[0]] if matched else window
+    dev = tokens.device
+    return (torch.from_numpy(out).to(dev), torch.from_numpy(ops).to(dev),
+            torch.from_numpy(derr).to(dev))
+
+
 # --- the kernels ---------------------------------------------------------------------
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -258,9 +345,34 @@ def parse_kernel(comp: torch.Tensor, comp_sizes: torch.Tensor, out_cap: int):
     return tabs, tokens, sp, err
 
 
+REPLAY_MAX_OUT = 65536  # the window's bytes (csrc/lz_window.cuh's kMaxOut)
+
+
+def replay_fits(out_cap: int) -> bool:
+    """Whether the window kernel takes this ``out_cap`` (at most 64 KiB)."""
+    return out_cap <= REPLAY_MAX_OUT
+
+
 def exec_kernel(tokens: torch.Tensor, n_tok: torch.Tensor, out_cap: int):
     """Launch the replay of ``csrc/gdeflate_vdecode.cu`` (same outputs as
-    :func:`exec_plain`)."""
+    :func:`exec_plain`): the window kernel where :func:`replay_fits`
+    (counted here), else :func:`exec_walk_kernel`."""
+    if tokens.device.type == "cuda" and not replay_fits(out_cap):
+        return exec_walk_kernel(tokens, n_tok, out_cap)
+    got = _exec("exec", tokens, n_tok, out_cap)
+    exec_kernel.launches += 1
+    return got
+
+
+def exec_walk_kernel(tokens: torch.Tensor, n_tok: torch.Tensor, out_cap: int):
+    """The replay walk, one warp a tile, for any ``out_cap`` (the one
+    :func:`exec_kernel` takes where the window does not fit)."""
+    got = _exec("exec_walk", tokens, n_tok, out_cap)
+    exec_walk_kernel.launches += 1
+    return got
+
+
+def _exec(entry: str, tokens: torch.Tensor, n_tok: torch.Tensor, out_cap: int):
     _on_card(tokens, "replay")
     if tokens.dtype != torch.int32 or tokens.dim() != 2:
         raise ValueError(f"tokens must be int32[B, n], got {tokens.dtype}{list(tokens.shape)}")
@@ -273,14 +385,14 @@ def exec_kernel(tokens: torch.Tensor, n_tok: torch.Tensor, out_cap: int):
     out = torch.empty((B, out_cap), dtype=torch.uint8, device=dev)
     op = torch.empty((B,), dtype=torch.int32, device=dev)
     derr = torch.empty((B,), dtype=torch.int32, device=dev)
-    _call("exec", [_P, _P, _I, _I, _P, _I, _P, _P],
+    _call(entry, [_P, _P, _I, _I, _P, _I, _P, _P],
           [tokens, n_tok, B, ntok_cap, out, out_cap, op, derr], dev)
-    exec_kernel.launches += 1
     return out, op, derr
 
 
 parse_kernel.launches = 0
 exec_kernel.launches = 0
+exec_walk_kernel.launches = 0
 
 
 # --- the wrappers --------------------------------------------------------------------
